@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources into plain-C shared libraries.
+
+Each ``tpushare_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into ``build/tpushare_torch/lib<name>-<digest>.so`` at the root
+of the checkout, where ``<digest>`` hashes the sources and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Libraries are loaded with ctypes; nothing here includes PyTorch's headers,
+which keeps one build to seconds.
+
+Nothing is compiled or loaded at import time: the first :func:`load`
+(or an explicit :func:`build`) does it, so a machine without ``nvcc``
+imports the package and runs its CPU paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "tpushare_torch"
+SOURCES = ("flash_fwd",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default location. Raises when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin",
+                                       "nvcc"))
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in candidates:
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin, PATH, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES, verbose: bool = False) -> dict[str, dict]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together. Returns, per name,
+    ``{"path", "seconds", "log"}`` (``seconds`` 0.0 and ``log`` empty
+    for a library that was already built). ``verbose`` adds
+    ``-Xptxas -v`` so the log lists registers, shared memory and spills.
+    Raises RuntimeError naming every source that failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    out: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = {"path": path, "seconds": 0.0, "log": ""}
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = {"path": path, "seconds": time.perf_counter() - t0,
+                     "log": log}
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for source ``name``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build((name,))[name]["path"]))
+            _LOADED[name] = lib
+        return lib
