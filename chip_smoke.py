@@ -10,12 +10,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    -- the hand-written kernels, built from ``tpushare_torch/csrc``
                (one ``nvcc`` per source, all started together).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
-               at the shapes the serving path gives it, with times.
-4. serve    -- the int8 serving replica (``llama-8b``, int8 weights, int8
+               at the shapes the serving and training paths give it, with
+               times; the backward kernels also launch twice for bitwise
+               equal gradients.
+4. train    -- the trainer (``player --mode train --attn flash``) at
+               llama-8b width and depth, three AdamW steps on one batch of
+               1024 tokens; the launch counts must show every layer's
+               forward and backward went through the kernels; then one
+               llama-8b-width layer's flash gradients against einsum's.
+5. serve    -- the int8 serving replica (``llama-8b``, int8 weights, int8
                KV cache, ``--attn flash``, continuous batching) answering
                HTTP requests; the kernel's launch count must show every
                prefill went through it.
-5. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
+6. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -60,6 +68,24 @@ ENTRY_TOL = 0.125
 # shapes move logits by a few 1e-2; a broken path misses by the logit
 # spread, about 4)
 SERVE_MARGIN = 0.5
+
+# backward kernel vs plain, relative to the plain version's largest
+# magnitude: both sum in fp32 in another order, and in bf16 a P or dS
+# value near a rounding boundary may round the other way, which moves a
+# gradient by up to a bf16 ulp or two (2**-7 of the magnitude); fp32 by
+# a few 1e-7
+BWD_REL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+# flash vs einsum gradients of one llama-8b-width layer, relative to the
+# einsum gradient's largest magnitude: the einsum path rounds scores to
+# bf16 before the softmax and the kernels keep them fp32, so P and dS
+# differ by about 2**-9 relative; summed over 1023 tokens in bf16 products
+# the gradients move by a percent or so. A broken kernel misses by the
+# gradient's own size.
+LAYER_GRAD_REL = 0.05
+TRAIN_STEPS = 3
+TRAIN_ARGV = ["--preset", "llama-8b", "--mode", "train", "--attn", "flash",
+              "--batch", "1", "--seq", "1024", "--steps", str(TRAIN_STEPS),
+              "--device", "cuda"]
 
 SERVE_ARGV = ["--preset", "llama-8b", "--quant", "int8",
               "--kv-cache-dtype", "int8", "--attn", "flash", "--engine",
@@ -124,6 +150,8 @@ class Smoke:
                    None),
                   ("llama-8b prefill S=512", 1, 32, 8, 512, 128, bf16, True,
                    None),
+                  ("llama-8b train S=1023", 1, 32, 8, 1023, 128, bf16, True,
+                   None),
                   ("entry llama-mini", 2, 8, 4, 128, 64, bf16, True, None),
                   ("ragged S=200", 1, 32, 8, 200, 128, bf16, True, None),
                   ("non-causal", 1, 32, 8, 256, 128, bf16, False, None),
@@ -180,8 +208,214 @@ class Smoke:
                 f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
                 f"({bound['flops']:.4g} FLOP, {bound['bytes']:.4g} B)")
         self.results["kernel_shapes"] = rows
+        self._kernels_bwd()
 
-    # -- 4. serving replica ------------------------------------------------------
+    def _kernels_bwd(self):
+        """K2 (dq) and K3 (dk/dv) against their plain versions, on inputs
+        made from K1's own output (O and LSE), as the training path makes
+        them."""
+        import torch
+        from tpushare_torch.kernels import flash, flash_bwd
+        from tpushare_torch.workloads import attention
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        # (label, B, H, Hkv, S, D, dtype, causal, window, model layout)
+        shapes = [("llama-8b train S=1023", 1, 32, 8, 1023, 128, bf16, True,
+                   None, True),
+                  ("llama-8b S=512", 1, 32, 8, 512, 128, bf16, True, None,
+                   False),
+                  ("non-causal", 1, 32, 8, 256, 128, bf16, False, None,
+                   False),
+                  ("window 77", 1, 32, 8, 256, 128, bf16, True, 77, False),
+                  ("fp32", 1, 8, 2, 256, 64, f32, True, None, False),
+                  ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
+                   False)]
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rows = []
+        for label, B, H, Hkv, S, D, dt, causal, window, bshd in shapes:
+            dims = ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, H, S, D))
+            if bshd:
+                # the model's [B, S, H, D] projections, transposed views
+                q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
+                                           device=dev).to(dt).transpose(1, 2)
+                               for b, h, s, d in dims)
+            else:
+                q, k, v, do = (torch.randn(d, generator=gen,
+                                           device=dev).to(dt) for d in dims)
+            out, lse = flash.flash_fwd(q, k, v, causal, window)
+            qs, do_c, lse_c, delta = attention._bwd_residuals(q, out, lse,
+                                                              do)
+            args = (qs, k, v, do_c, lse_c, delta)
+
+            def dq_kernel():
+                return flash_bwd.flash_bwd_dq(*args, causal, window)
+
+            def dkdv_kernel():
+                return flash_bwd.flash_bwd_dkdv(*args, causal, window)
+
+            got = (dq_kernel(), *dkdv_kernel())
+            torch.cuda.synchronize()
+            again = (dq_kernel(), *dkdv_kernel())
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two launches of the "
+                                     "backward kernels differ")
+            want = (attention.flash_bwd_dq_plain(*args, causal, window),
+                    *attention.flash_bwd_dkdv_plain(*args, causal, window))
+            rel_tol = BWD_REL[str(dt).split(".")[-1]]
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                scale = b.float().abs().max().item()
+                errs[name] = (err, scale)
+                if not err <= rel_tol * scale:
+                    raise AssertionError(
+                        f"{label}: {name} kernel vs plain max|d| {err:.3g} "
+                        f"> {rel_tol:.3g} x max|{name}| {scale:.3g}")
+
+            lib_ms = sdpa_backward_ms(q, k, v, do, causal, window)
+            row = {"shape": label, "B": B, "H": H, "Hkv": Hkv, "S": S,
+                   "D": D, "dtype": str(dt), "causal": causal,
+                   "window": window, "model_layout": bshd,
+                   "library_ms": lib_ms}
+            for key, fn, plain, names in (
+                    ("dq", dq_kernel,
+                     lambda: attention.flash_bwd_dq_plain(*args, causal,
+                                                          window), ("dq",)),
+                    ("dkdv", dkdv_kernel,
+                     lambda: attention.flash_bwd_dkdv_plain(*args, causal,
+                                                            window),
+                     ("dk", "dv"))):
+                bound = flash_bwd_bound(key, B, H, Hkv, S, D, dt, causal,
+                                        window)
+                row[key] = {"ms": time_ms(fn, 20), "call_ms": call_ms(fn),
+                            "plain_ms": time_ms(plain, 3),
+                            "max_abs_err": max(errs[n][0] for n in names),
+                            "max_abs": max(errs[n][1] for n in names),
+                            **bound}
+                r = row[key]
+                log(f"kernel flash_bwd_{key} [{label}] B={B} H={H} Hkv={Hkv}"
+                    f" S={S} D={D} {str(dt)[6:]} causal={causal} "
+                    f"window={window}: max|d| {r['max_abs_err']:.3g} of "
+                    f"max {r['max_abs']:.3g}; {r['ms']:.4f} ms "
+                    f"({r['call_ms']:.4f} ms a call from Python), plain "
+                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"by {r['bound_by']} ({r['flops']:.4g} FLOP, "
+                    f"{r['bytes']:.4g} B)")
+            log(f"sdpa backward [{label}]: {lib_ms:.4f} ms (fwd+bwd minus "
+                "fwd); both kernels bitwise equal over two launches")
+            rows.append(row)
+        self.results["bwd_kernel_shapes"] = rows
+
+    # -- 4. trainer ----------------------------------------------------------------
+    def train(self):
+        import gc
+
+        import torch
+        from tpushare_torch.kernels import flash, flash_bwd
+        from tpushare_torch.workloads import player
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        before = torch.cuda.memory_allocated()
+        log(f"train: memory_allocated before {before / 2**30:.2f} GiB of "
+            f"{total / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+
+        # -- the main path, with the launch counts read around it only --
+        flash.LAUNCHES = 0
+        flash_bwd.LAUNCHES_DQ = 0
+        flash_bwd.LAUNCHES_DKDV = 0
+        t0 = time.perf_counter()
+        record = player.run(TRAIN_ARGV)
+        main_s = time.perf_counter() - t0
+        launches = (flash.LAUNCHES, flash_bwd.LAUNCHES_DQ,
+                    flash_bwd.LAUNCHES_DKDV)
+        # -- end of the main path --
+
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = record["losses"]
+        layers = 32
+        if launches != (layers * TRAIN_STEPS,) * 3:
+            raise AssertionError(
+                f"launches flash_fwd/dq/dkdv {launches}, expected "
+                f"{layers} layers x {TRAIN_STEPS} steps each")
+        if len(losses) != TRAIN_STEPS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"train losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss did not fall: {losses}")
+        seq = int(TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1])
+        step_s = statistics.median(record["step_s"][1:])
+        tokens_s = (seq - 1) / step_s
+        self.train_launches = launches
+        log(f"train: llama-8b B=1 S={seq - 1} (a ragged length), "
+            f"{TRAIN_STEPS} AdamW steps: losses "
+            + ", ".join(f"{x:.6g}" for x in losses)
+            + f"; launches flash_fwd {launches[0]}, flash_bwd_dq "
+            f"{launches[1]}, flash_bwd_dkdv {launches[2]} = {layers} x "
+            f"{TRAIN_STEPS} each")
+        log("train: step times " + ", ".join(
+            f"{t * 1e3:.1f}" for t in record["step_s"])
+            + f" ms; steady step {step_s * 1e3:.1f} ms = {tokens_s:.1f} "
+            f"tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB, "
+            f"{(total - peak) / 2**30:.2f} GiB of the card left; main path "
+            f"{main_s:.1f} s")
+        if total - peak < 4 * 2**30:
+            log("train: NOTE under 4 GiB of the card left at the peak")
+        grads = self._layer_grads()
+        self.results["train"] = {
+            "argv": TRAIN_ARGV, "losses": losses, "step_s": record["step_s"],
+            "steady_step_s": step_s, "tokens_per_s": tokens_s,
+            "max_memory_allocated": peak, "total_memory": total,
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkdv": launches[2]},
+            "main_path_s": main_s, "layer_grads": grads}
+
+    def _layer_grads(self) -> dict:
+        """One llama-8b-width decoder layer: flash and einsum parameter
+        gradients of the same scalar on the same input."""
+        import dataclasses
+
+        import torch
+        from tpushare_torch.workloads import model
+
+        cfg = dataclasses.replace(model.PRESETS["llama-8b"], n_layers=1)
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(2)
+        lp = model.train_params(model.init_params(cfg, gen))["layers"][0]
+        S = 1023
+        x = torch.randn(1, S, cfg.d_model, generator=gen, device=dev).to(
+            cfg.dtype)
+        proj = torch.randn(1, S, cfg.d_model, generator=gen, device=dev)
+        positions = torch.arange(S, device=dev)[None]
+        names = list(lp)
+        grads = {}
+        for attn in ("flash", "einsum"):
+            out, _ = model.decoder_layer(
+                x, lp, positions, dataclasses.replace(cfg, attn=attn))
+            loss = (out.float() * proj).sum()
+            grads[attn] = torch.autograd.grad(loss, [lp[n] for n in names])
+        worst = {}
+        for name, gf, ge in zip(names, grads["flash"], grads["einsum"]):
+            err = (gf.float() - ge.float()).abs().max().item()
+            scale = ge.float().abs().max().item()
+            if not (math.isfinite(err) and err <= LAYER_GRAD_REL * scale):
+                raise AssertionError(
+                    f"layer grads: {name} flash vs einsum max|d| {err:.3g} "
+                    f"> {LAYER_GRAD_REL} x max|g| {scale:.3g}")
+            worst[name] = {"max_abs_diff": err, "max_abs": scale}
+        rel = max(w["max_abs_diff"] / w["max_abs"] for w in worst.values())
+        log(f"train: one llama-8b-width layer (S={S}), flash vs einsum "
+            f"parameter gradients: worst max|d| / max|g| {rel:.4f} (limit "
+            f"{LAYER_GRAD_REL}) over {', '.join(names)}")
+        return worst
+
+    # -- 5. serving replica ------------------------------------------------------
     def serve(self):
         import torch
         from tpushare_torch.kernels import flash
@@ -333,7 +567,7 @@ class Smoke:
                                  f"{SERVE_MARGIN})")
         return worst
 
-    # -- 5. entry ----------------------------------------------------------------
+    # -- 6. entry ----------------------------------------------------------------
     def entry(self):
         import torch
         from tpushare_torch.entry import entry
@@ -355,42 +589,116 @@ class Smoke:
                                  f"{ENTRY_TOL}")
         self.results["entry"] = {"max_abs_diff": diff, "max_abs": scale}
 
-    def kernel_line(self) -> dict:
-        """The ``{"kernels": [...]}`` record: times at the largest serving
-        prefill bucket, the error as the worst over the bf16 path shapes."""
+    def kernel_line(self) -> list:
+        """The ``{"kernels": [...]}`` records. K1: times at the largest
+        serving prefill bucket, launches from the serving path (and from
+        the training path beside them). K2 and K3: times at the training
+        shape, launches from the training path; ``library_ms`` is the
+        whole SDPA backward, a yardstick for the pair. Errors are the
+        worst over the bf16 shapes."""
         rows = self.results["kernel_shapes"]
         head = next(r for r in rows if r["shape"] == "llama-8b prefill S=512")
         path = [r for r in rows if r["dtype"] == "torch.bfloat16"]
-        return {"name": "flash_fwd", "route": "cuda",
-                "source": "tpushare_torch/csrc/flash_fwd.cu",
-                "replaces": "tpushare/workloads/attention.py:279",
-                "launches": self.launches,
-                "max_abs_err": max(r["max_abs_err_out"] for r in path),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "shape": head["shape"]}
+        fwd = {"name": "flash_fwd", "route": "cuda",
+               "source": "tpushare_torch/csrc/flash_fwd.cu",
+               "replaces": "tpushare/workloads/attention.py:279",
+               "launches": self.launches,
+               "launches_by_path": {"serve": self.launches,
+                                    "train": self.train_launches[0]},
+               "max_abs_err": max(r["max_abs_err_out"] for r in path),
+               "ms": head["ms"], "plain_ms": head["plain_ms"],
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "library_ms": head["library_ms"], "shape": head["shape"]}
+        rows = self.results["bwd_kernel_shapes"]
+        head = next(r for r in rows if r["shape"] == "llama-8b train S=1023")
+        path = [r for r in rows if r["dtype"] == "torch.bfloat16"]
+        out = [fwd]
+        for key, line, launches in (("dq", 627, self.train_launches[1]),
+                                    ("dkdv", 695, self.train_launches[2])):
+            k = head[key]
+            out.append({
+                "name": f"flash_bwd_{key}", "route": "cuda",
+                "source": "tpushare_torch/csrc/flash_bwd.cu",
+                "replaces": f"tpushare/workloads/attention.py:{line}",
+                "launches": launches,
+                "max_abs_err": max(r[key]["max_abs_err"] for r in path),
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": head["library_ms"], "shape": head["shape"]})
+        return out
 
 
-def flash_bound(B, H, Hkv, S, D, dtype, causal, window) -> dict:
-    """The least time for one flash forward: the larger of its bytes
-    (q, k, v read once, out and lse written once) over the memory rate
-    and its FLOPs (2 products over the visible (query, key) pairs only)
-    over the peak rate of its type."""
+def visible_pairs(S, causal, window) -> int:
+    """(query, key) pairs that attention over S positions computes."""
     import torch
     rows = torch.arange(S)
     lo = torch.zeros(S, dtype=torch.long)
     hi = torch.full((S,), S - 1) if not causal else rows
     if window is not None:
         lo = (rows - (window - 1)).clamp_min(0)
-    pairs = int((hi - lo + 1).sum())
-    flops = 4 * B * H * D * pairs
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
+    return int((hi - lo + 1).sum())
+
+
+def roofline(flops, nbytes, dtype) -> dict:
+    """The larger of bytes over the memory rate and FLOPs over the peak
+    rate of the type."""
+    import torch
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def flash_bound(B, H, Hkv, S, D, dtype, causal, window) -> dict:
+    """The least time for one flash forward: its bytes (q, k, v read
+    once, out and lse written once) and its FLOPs (2 products over the
+    visible (query, key) pairs only)."""
+    import torch
+    flops = 4 * B * H * D * visible_pairs(S, causal, window)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
+    return roofline(flops, nbytes, dtype)
+
+
+def flash_bwd_bound(kernel, B, H, Hkv, S, D, dtype, causal, window) -> dict:
+    """The least time for one backward kernel. Both read q, dO, k, v,
+    LSE and delta once; dq writes dq and does 3 products (S, dP, dS K)
+    over the visible pairs, dk/dv writes dk and dv and does 4 (S, dP,
+    P^T dO, dS^T q)."""
+    import torch
+    products = 3 if kernel == "dq" else 4
+    flops = 2 * products * B * H * D * visible_pairs(S, causal, window)
+    item = torch.tensor([], dtype=dtype).element_size()
+    q_side, kv_side = B * H * S * D, B * Hkv * S * D
+    tensors = (3 * q_side + 2 * kv_side if kernel == "dq"
+               else 2 * q_side + 4 * kv_side)
+    return roofline(flops, item * tensors + 2 * 4 * B * H * S, dtype)
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window) -> float:
+    """The backward of ``F.scaled_dot_product_attention(...,
+    enable_gqa=True)`` on the same inputs: CUDA-event time of its forward
+    and backward minus that of its forward alone. A yardstick that the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(q.shape[2], device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] >= pos[:, None] - (window - 1)))
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), do)
+
+    return call_ms(fwd_bwd) - call_ms(fwd)
 
 
 def time_ms(fn, calls: int, reps: int = 5) -> float:
@@ -488,7 +796,7 @@ def check_rows(prompts, rows, steps, vocab):
             raise AssertionError("token outside the vocabulary")
 
 
-PHASES = ("card", "build", "kernels", "serve", "entry")
+PHASES = ("card", "build", "kernels", "train", "serve", "entry")
 
 
 def main(argv=None) -> int:
@@ -533,7 +841,7 @@ def main(argv=None) -> int:
     if tuple(phases) != PHASES:
         log("chip_smoke: partial run, no result line")
         return 0
-    log(json.dumps({"kernels": [smoke.kernel_line()]}))
+    log(json.dumps({"kernels": smoke.kernel_line()}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

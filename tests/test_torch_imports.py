@@ -57,8 +57,10 @@ def test_no_kernel_toolchain_at_import(path):
 
 def test_the_scan_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert {"tpushare_torch/kernels/flash.py", "tpushare_torch/entry.py",
-            "tpushare_torch/workloads/serve.py", "chip_smoke.py"} <= names
+    assert {"tpushare_torch/kernels/flash.py",
+            "tpushare_torch/kernels/flash_bwd.py", "tpushare_torch/entry.py",
+            "tpushare_torch/workloads/serve.py",
+            "tpushare_torch/workloads/player.py", "chip_smoke.py"} <= names
     tree = ast.parse("import jax\nfrom tpushare.x import y\n"
                      "def f():\n    import triton\n")
     assert list(_imports(tree)) == [("jax", True), ("tpushare.x", True),

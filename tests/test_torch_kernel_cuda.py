@@ -1,5 +1,6 @@
-"""The flash-attention forward kernel (tpushare_torch/csrc/flash_fwd.cu)
-against its plain version, on a CUDA card. Without one every test skips.
+"""The flash-attention kernels (tpushare_torch/csrc/flash_fwd.cu and
+flash_bwd.cu) against their plain versions, on a CUDA card. Without one
+every test skips.
 
 On the card (where JAX, which tests/conftest.py imports, may be absent):
 
@@ -10,7 +11,8 @@ On the card (where JAX, which tests/conftest.py imports, may be absent):
 import pytest
 import torch
 
-from tpushare_torch.kernels import flash
+from tpushare_torch.kernels import flash, flash_bwd
+from tpushare_torch.workloads import attention
 from tpushare_torch.workloads.attention import flash_attention_plain
 
 torch.set_num_threads(2)
@@ -44,10 +46,12 @@ CASES = [(1, 32, 8, 64, 128, torch.bfloat16, True, None),
          (2, 4, 2, 96, 16, torch.float32, True, 5)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=[
-    f"B{c[0]}H{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}-{str(c[5])[6:]}"
-    f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
-    for c in CASES])
+IDS = [f"B{c[0]}H{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}-{str(c[5])[6:]}"
+       f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
+       for c in CASES]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_kernel_matches_plain(cuda, case):
     B, H, Hkv, S, D, dtype, causal, window = case
     q, k, v = _qkv(cuda, B, H, Hkv, S, D, dtype)
@@ -92,3 +96,64 @@ def test_kernel_reads_rows_off_16_byte_alignment(cuda, dtype):
     tol_o, tol_l = TOL[dtype]
     assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
     assert (lse - ref_lse).abs().max().item() <= tol_l
+
+
+# backward: both sum in fp32 and differ in order; in bf16 a P or dS value
+# near a rounding boundary may round the other way, so allow two bf16
+# ulps (2**-7) of the largest gradient magnitude, in fp32 1e-5 of it
+BWD_REL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+
+
+def _bwd_inputs(dev, B, H, Hkv, S, D, dtype, causal, window, layout=None):
+    """The backward kernels' inputs from K1's own output; ``layout``
+    "bshd" hands q, k, v and dO over as the model does, [B, S, H, D]
+    tensors transposed to [B, H, S, D]."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, H, S, D))
+    if layout == "bshd":
+        ts = [torch.randn(s[0], s[2], s[1], s[3], generator=gen,
+                          device=dev).to(dtype).transpose(1, 2)
+              for s in shapes]
+    else:
+        ts = [torch.randn(s, generator=gen, device=dev).to(dtype)
+              for s in shapes]
+    q, k, v, do = ts
+    out, lse = flash.flash_fwd(q, k, v, causal, window)
+    qs, do, lse, delta = attention._bwd_residuals(q, out, lse, do)
+    return (qs, k, v, do, lse, delta)
+
+
+def _bwd(args, causal, window):
+    return (flash_bwd.flash_bwd_dq(*args, causal, window),
+            *flash_bwd.flash_bwd_dkdv(*args, causal, window))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_backward_kernels_match_plain(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window)
+    before = (flash_bwd.LAUNCHES_DQ, flash_bwd.LAUNCHES_DKDV)
+    dq, dk, dv = _bwd(args, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_bwd.LAUNCHES_DQ, flash_bwd.LAUNCHES_DKDV) == \
+        (before[0] + 1, before[1] + 1)
+    want = (attention.flash_bwd_dq_plain(*args, causal, window),
+            *attention.flash_bwd_dkdv_plain(*args, causal, window))
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        tol = BWD_REL[dtype] * ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+    # no atomics: a second launch gives bitwise the same gradients
+    for got, again in zip((dq, dk, dv), _bwd(args, causal, window)):
+        assert torch.equal(got, again)
+
+
+def test_backward_kernels_read_transposed_views(cuda):
+    B, H, Hkv, S, D = 1, 8, 2, 100, 64
+    args = _bwd_inputs(cuda, B, H, Hkv, S, D, torch.bfloat16, True, None,
+                       layout="bshd")
+    assert not args[0].is_contiguous() and not args[3].is_contiguous()
+    got = _bwd(args, True, None)
+    dense = [t.contiguous() for t in args]
+    for a, b in zip(got, _bwd(dense, True, None)):
+        assert torch.equal(a, b)

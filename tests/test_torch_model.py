@@ -16,10 +16,16 @@ import pytest
 import torch
 
 from tpushare.workloads import model as jm
+from tpushare_torch.workloads import attention as ta
 from tpushare_torch.workloads import model as tm
 from tpushare_torch.workloads.convert import params_from_numpy
 
 torch.set_num_threads(2)
+# The first attention a process computes with torch's CPU kernels has been
+# seen to come out about 1e-4 off (in roughly one fresh process of 70,
+# the same wrong bits each time), with every later call exact to fp32.
+# One small call at import keeps that first call out of the comparisons.
+ta.flash_attention_plain(*torch.zeros(3, 1, 1, 8, 16).unbind(0))
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -15,9 +15,13 @@ which is TPU MXU alignment.
   in torch ops. The CPU path and the kernel's check on the card use it.
 - :func:`attention_reference` is the einsum spec.
 
-Forward only: the backward kernels (``_flash_bwd_dq_kernel``,
-``_flash_bwd_dkdv_kernel``) belong to the training slice, ROADMAP.md
-Queue 1 item 9.
+Differentiable: with a gradient, :func:`flash_attention` runs through
+:class:`_Flash`, whose backward is chosen by ``bwd_impl`` (or
+``$TPUSHARE_FLASH_BWD``): "pallas", the default, runs the dq and dk/dv
+kernels (:mod:`tpushare_torch.kernels.flash_bwd`; their plain versions
+:func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkdv_plain` for CPU
+tensors), and "xla" the reference's fp32 escape hatch
+:func:`_flash_bwd_xla` in torch ops on either device.
 """
 
 from __future__ import annotations
@@ -27,9 +31,27 @@ import os
 import torch
 
 MAX_HEAD_DIM = 128
-# key block of the plain version; equal to the kernel's kv tile so both
+# key block of the plain versions; equal to the kernels' kv tile so both
 # apply the online-softmax update at the same block boundaries
 BLOCK = 64
+# key block of _flash_bwd_xla: the reference's own BLOCK there
+XLA_BLOCK = 128
+
+_FLASH_BWD_IMPLS = ("xla", "pallas")
+
+
+def _resolve_flash_bwd(bwd_impl: str | None) -> str:
+    """The backward implementation, resolved when :func:`flash_attention`
+    runs (outside the graph): the argument, else ``$TPUSHARE_FLASH_BWD``,
+    else "pallas". "pallas" is the dq and dk/dv kernel pair (the name is
+    the reference's), "xla" the fp32 blockwise escape hatch."""
+    if bwd_impl is None:
+        bwd_impl = os.environ.get("TPUSHARE_FLASH_BWD", "pallas")
+    if bwd_impl not in _FLASH_BWD_IMPLS:
+        raise ValueError(
+            f"bwd_impl={bwd_impl!r} (or $TPUSHARE_FLASH_BWD) must be one "
+            f"of {_FLASH_BWD_IMPLS}")
+    return bwd_impl
 
 
 def validate_gqa_qkv(q, k, v, extra: str = "") -> int:
@@ -141,6 +163,170 @@ def _flash_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_fwd(q, k, v, causal=causal, window=window)
 
 
+# -- backward -------------------------------------------------------------------
+
+def _bwd_residuals(q, out, lse, do):
+    """The inputs of the backward kernels, made as the reference's
+    ``_flash_bwd_pallas`` makes them outside its kernels. Returns ``(qs,
+    do, lse, delta)``: q pre-scaled by ``D**-0.5`` in fp32 and rounded to
+    its dtype; dO cast to q's dtype; the LSE with -inf clamped to +1e30,
+    so P is exactly 0 on rows that see no key (0 would leave P = exp(s),
+    which a large score can overflow into a NaN dS); delta =
+    rowsum(fp32 dO * fp32 O)."""
+    D = q.shape[-1]
+    qs = (q.float() * (D ** -0.5)).to(q.dtype)
+    do = do.to(q.dtype)
+    lse = torch.where(torch.isfinite(lse), lse,
+                      torch.full_like(lse, 1e30)).contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    return qs, do, lse, delta
+
+
+def _bwd_blocks(qs, k, v, do, lse, delta, causal, window):
+    """The block math shared by the plain backward versions (the
+    reference's ``_bwd_common``), one 64-key block at a time. Yields
+    ``(kb, p, ds)``: the block's keys as fp32 ``[B, Hkv, 1, bk, D]``, P
+    = exp(s - LSE) in fp32 and dS = P * (dP - delta) rounded to k's dtype
+    (held as fp32), both ``[B, Hkv, G, S, bk]``. Query head h = hk * G + g
+    reads kv head hk."""
+    B, H, S, D = qs.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = qs.float().reshape(B, Hkv, G, S, D)
+    dog = do.float().reshape(B, Hkv, G, S, D)
+    lse_g = lse.reshape(B, Hkv, G, S, 1)
+    delta_g = delta.reshape(B, Hkv, G, S, 1)
+    rows = torch.arange(S, device=qs.device)[:, None]
+    for j0 in range(0, Skv, BLOCK):
+        kb = k[:, :, None, j0:j0 + BLOCK].float()
+        vb = v[:, :, None, j0:j0 + BLOCK].float()
+        s = torch.matmul(qg, kb.transpose(-1, -2))
+        if causal:
+            cols = torch.arange(j0, j0 + kb.shape[3], device=qs.device)[None]
+            mask = cols <= rows
+            if window is not None:
+                mask = mask & sliding_window_mask(rows, cols, window)
+            s = s.masked_fill(~mask, float("-inf"))
+        p = torch.exp(s - lse_g)  # masked entries and clamped rows give 0
+        dp = torch.matmul(dog, vb.transpose(-1, -2))
+        yield kb, p, (p * (dp - delta_g)).to(k.dtype).float()
+
+
+def flash_bwd_dq_plain(qs, k, v, do, lse, delta, causal: bool = True,
+                       window: int | None = None) -> torch.Tensor:
+    """dq of the flash backward in torch ops: the dq kernel's plain
+    version, on the inputs :func:`_bwd_residuals` makes. dq leaves the
+    block sum rounded to q's dtype, then is scaled in fp32 and rounded
+    again, as in the reference."""
+    B, H, S, D = qs.shape
+    Hkv = k.shape[1]
+    acc = torch.zeros((B, Hkv, H // Hkv, S, D), device=qs.device)
+    for kb, _, ds in _bwd_blocks(qs, k, v, do, lse, delta, causal, window):
+        acc = acc + torch.matmul(ds, kb)
+    dq = acc.to(qs.dtype).float() * (D ** -0.5)
+    return dq.to(qs.dtype).reshape(B, H, S, D)
+
+
+def flash_bwd_dkdv_plain(qs, k, v, do, lse, delta, causal: bool = True,
+                         window: int | None = None):
+    """``(dk, dv)`` of the flash backward in torch ops: the dk/dv
+    kernel's plain version. Each kv head sums over its query-head group;
+    P is rounded to dO's dtype before the dV product."""
+    B, H, S, D = qs.shape
+    Hkv = k.shape[1]
+    qg = qs.float().reshape(B, Hkv, H // Hkv, S, D)
+    dog = do.float().reshape(B, Hkv, H // Hkv, S, D)
+    dks, dvs = [], []
+    for _, p, ds in _bwd_blocks(qs, k, v, do, lse, delta, causal, window):
+        pr = p.to(do.dtype).float().transpose(-1, -2)
+        dvs.append(torch.matmul(pr, dog).sum(dim=2))
+        dks.append(torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2))
+    if not dks:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    return (torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def _flash_bwd_pallas(q, k, v, out, lse, do, causal: bool,
+                      window: int | None = None):
+    """The kernel-pair backward (the reference's ``_flash_bwd_pallas``):
+    the dq kernel, then the dk/dv kernel, on CUDA tensors; their plain
+    versions on CPU tensors. Returns ``(dq, dk, dv)``."""
+    from tpushare_torch.kernels.flash_bwd import flash_bwd_dkdv, flash_bwd_dq
+    qs, do, lse, delta = _bwd_residuals(q, out, lse, do)
+    dq = flash_bwd_dq(qs, k, v, do, lse, delta, causal, window)
+    dk, dv = flash_bwd_dkdv(qs, k, v, do, lse, delta, causal, window)
+    return dq, dk, dv
+
+
+def _flash_bwd_xla(causal, res, do, window: int | None = None):
+    """Blockwise backward in fp32 torch ops, over 128-key blocks, with
+    K/V expanded to the query heads (the reference's ``bwd_impl="xla"``
+    escape hatch). ``res`` is ``(q, k, v, out, lse)``. Like the
+    reference it multiplies every block, masked ones included, and
+    clamps a -inf LSE to 0 (those rows' dO is zero)."""
+    q, k, v, out, lse = res
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    kv = k.shape[2]
+    scale = D ** -0.5
+    qf, dof = q.float(), do.float()
+    lse_c = torch.where(torch.isfinite(lse), lse,
+                        torch.zeros_like(lse))[..., None]
+    qs = qf * scale
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    row = torch.arange(S, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j0 in range(0, kv, XLA_BLOCK):
+        kb, vb = kf[:, :, j0:j0 + XLA_BLOCK], vf[:, :, j0:j0 + XLA_BLOCK]
+        p = torch.exp(torch.matmul(qs, kb.transpose(-1, -2)) - lse_c)
+        if causal:
+            col = torch.arange(j0, j0 + kb.shape[2], device=q.device)[None]
+            mask = col <= row
+            if window is not None:
+                mask = mask & sliding_window_mask(row, col, window)
+            p = torch.where(mask, p, torch.zeros_like(p))
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        ds = p * (torch.matmul(dof, vb.transpose(-1, -2)) - delta)
+        dq = dq + torch.matmul(ds, kb) * scale
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf) * scale)
+    if dks:
+        dk, dv = torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+    else:
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    dk = dk.reshape(B, Hkv, g, kv, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, g, kv, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its backward (the reference's ``custom_vjp``
+    ``_flash``): the forward saves q, k, v, O and the LSE; the backward
+    runs the resolved ``bwd_impl``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, bwd_impl):
+        out, lse = _flash_call(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.bwd_impl = causal, window, bwd_impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.bwd_impl == "pallas":
+            grads = _flash_bwd_pallas(q, k, v, out, lse, do, ctx.causal,
+                                      ctx.window)
+        else:
+            grads = _flash_bwd_xla(ctx.causal, (q, k, v, out, lse), do,
+                                   window=ctx.window)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     interpret: bool | None = None,
@@ -155,13 +341,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window=W`` (causal only): query i sees keys [max(0, i-W+1), i];
     key tiles below the window floor are skipped.
 
-    ``interpret``, ``block_q``, ``block_kv`` and ``bwd_impl`` are TPU
-    knobs of the reference (interpret mode, tile sizes, backward
-    variant): accepted and ignored, so callers port unchanged.
-    ``fwd_impl`` (or ``$TPUSHARE_FLASH_FWD``) must be "step"; the
-    pipelined forward is not ported yet.
+    Differentiable: when q, k or v needs a gradient the call goes
+    through :class:`_Flash`. ``bwd_impl`` (or ``$TPUSHARE_FLASH_BWD``):
+    "pallas", the default, runs the dq and dk/dv kernels (their plain
+    versions on CPU tensors); "xla" the fp32 blockwise backward that
+    expands K/V.
+
+    ``interpret``, ``block_q`` and ``block_kv`` are TPU knobs of the
+    reference (interpret mode, tile sizes): accepted and ignored, so
+    callers port unchanged. ``fwd_impl`` (or ``$TPUSHARE_FLASH_FWD``)
+    must be "step"; the pipelined forward is not ported yet.
     """
-    del interpret, block_q, block_kv, bwd_impl
+    del interpret, block_q, block_kv
+    bwd_impl = _resolve_flash_bwd(bwd_impl)
     fwd_impl = fwd_impl or os.environ.get("TPUSHARE_FLASH_FWD", "step")
     if fwd_impl == "pipelined":
         raise NotImplementedError(
@@ -183,7 +375,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"window={window} must be >= 1")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention backward is not ported yet (ROADMAP.md "
-            "Queue 1 item 9, kernels K2/K3)")
+        return _Flash.apply(q, k, v, bool(causal), window, bwd_impl)
     return _flash_call(q, k, v, bool(causal), window)[0]

@@ -1,12 +1,17 @@
 """Llama-style decoder-only transformer in PyTorch: the port's model.
 
-Counterpart of ``tpushare/workloads/model.py`` (dense presets, forward and
-the KV-cached serving path; training comes with ROADMAP.md Queue 1
-item 9). Parameters are the reference's layout as plain dicts of tensors:
-``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}``, with
-int8 weights as ``{"int8": int8 tensor, "scale": fp32 tensor}``, so
-weights carry across from the JAX package with
-:func:`tpushare_torch.workloads.convert.params_from_numpy`.
+Counterpart of ``tpushare/workloads/model.py`` (dense presets, forward,
+training and the KV-cached serving path). Parameters are the reference's
+layout as plain dicts of tensors: ``{"embed", "layers": {name: [L, ...]},
+"final_norm", "lm_head"}``, with int8 weights as ``{"int8": int8 tensor,
+"scale": fp32 tensor}``, so weights carry across from the JAX package
+with :func:`tpushare_torch.workloads.convert.params_from_numpy`.
+
+Training reads the same weights through :func:`train_params`, which
+gives one leaf tensor per layer and weight (a view into the stacked
+tensor), so autograd never builds a gradient the size of a whole stack
+for one layer's slice, and the optimizer's in-place updates land in the
+stacked tree.
 
 Numerics follow the reference where it fixes them: RMSNorm and RoPE trig
 in fp32, attention scores out of the product in the activation dtype and
@@ -174,7 +179,10 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _layer(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters out of the stacked tree."""
+    """Layer ``i``'s parameters out of the stacked tree, or out of the
+    per-layer list of a :func:`train_params` tree."""
+    if isinstance(params["layers"], list):
+        return params["layers"][i]
     return {n: ({"int8": w["int8"][i], "scale": w["scale"][i]}
                 if isinstance(w, dict) else w[i])
             for n, w in params["layers"].items()}
@@ -292,6 +300,100 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     x = _rmsnorm(x, params["final_norm"])
     logits = _matmul(x, params["lm_head"]).float()
     return logits, torch.stack(auxs).mean()
+
+
+# -- loss / train step --------------------------------------------------------
+
+def train_params(params: dict) -> dict:
+    """The trainable view of a stacked parameter tree: "embed",
+    "final_norm" and "lm_head" as leaves, and "layers" as a list with one
+    dict of leaves per layer. Every leaf is a detached view sharing the
+    stacked tensors' storage and requires a gradient; the optimizer
+    updates it in place, so the stacked tree (the one serving reads)
+    sees every step. int8 weights do not train."""
+    if any(isinstance(w, dict)
+           for w in (params["lm_head"], *params["layers"].values())):
+        raise ValueError("int8 weights are not trainable; train the "
+                         "model-dtype parameters and quantize after")
+
+    def leaf(w):
+        return w.detach().requires_grad_()
+
+    n_layers = next(iter(params["layers"].values())).shape[0]
+    return {"embed": leaf(params["embed"]),
+            "layers": [{n: leaf(w[i]) for n, w in params["layers"].items()}
+                       for i in range(n_layers)],
+            "final_norm": leaf(params["final_norm"]),
+            "lm_head": leaf(params["lm_head"])}
+
+
+def param_leaves(params: dict) -> list:
+    """The leaves of a :func:`train_params` tree, in a fixed order."""
+    return ([params["embed"]]
+            + [w for lp in params["layers"] for w in lp.values()]
+            + [params["final_norm"], params["lm_head"]])
+
+
+def next_token_loss(logits: torch.Tensor, aux: torch.Tensor,
+                    targets: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-entropy of shifted logits against targets + weighted MoE aux
+    (the reference's single definition of the training objective)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())
+    return nll.mean() + cfg.moe_aux_weight * aux
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            forward_fn=None) -> torch.Tensor:
+    """Next-token cross-entropy over the shifted sequence (+ MoE aux).
+    ``forward_fn(params, tokens, cfg) -> (logits, aux)`` defaults to
+    :func:`forward_with_aux`."""
+    logits, aux = (forward_fn or forward_with_aux)(params, tokens[:, :-1],
+                                                   cfg)
+    return next_token_loss(logits, aux, tokens[:, 1:], cfg)
+
+
+class AdamW:
+    """``optax.adamw(learning_rate)`` for the port: :meth:`init` plays
+    ``tx.init`` and returns a ``torch.optim.AdamW`` over the leaves of a
+    :func:`train_params` tree with optax's defaults: betas (0.9, 0.999),
+    eps 1e-8 added outside the square root, decoupled weight decay 1e-4
+    (torch's own default is 1e-2). The state takes the parameters' dtype,
+    as optax's does. On CUDA it is the fused implementation, one pass over
+    each tensor; on the CPU the single-tensor one. Neither allocates
+    temporaries across all parameters at once, as the default
+    multi-tensor path does."""
+
+    def __init__(self, learning_rate: float):
+        self.learning_rate = learning_rate
+
+    def init(self, params: dict) -> torch.optim.AdamW:
+        leaves = param_leaves(params)
+        fused = leaves[0].device.type == "cuda"
+        return torch.optim.AdamW(
+            leaves, lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=1e-4, fused=True if fused else None,
+            foreach=None if fused else False)
+
+
+def make_train_step(cfg: ModelConfig, learning_rate: float = 3e-4,
+                    forward_fn=None):
+    """Returns ``(tx, train_step)`` as the reference does:
+    ``opt_state = tx.init(params)`` over a :func:`train_params` tree, then
+    ``train_step(params, opt_state, tokens) -> (params, opt_state,
+    loss)``. The step updates ``params`` and ``opt_state`` in place (and
+    returns them, so callers port unchanged) and frees the gradients
+    after the update, so they do not live through the next forward."""
+    tx = AdamW(learning_rate)
+
+    def train_step(params, opt_state, tokens):
+        loss = loss_fn(params, tokens, cfg, forward_fn=forward_fn)
+        loss.backward()
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        return params, opt_state, loss.detach()
+
+    return tx, train_step
 
 
 # -- KV-cache forward (serving path) ------------------------------------------
