@@ -24,6 +24,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                prefill went through it.
 6. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
+7. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
+               (``player --preset vit-b16 --mode train --batch 32 --attn
+               flash``) under the sample's 4096 MiB grant with
+               ``TPUSHARE_FLASH_FWD=pipelined``, in child processes (the
+               grant's memory fraction is process-wide): three steps with
+               a checkpoint at step 2, a second process that resumes from
+               it and must reach the same step-3 state bitwise, a forward
+               run; the launch counts must show every layer went through
+               K4, K2 and K3 and none through K1; then ViT-B/16 logits
+               through K4 against the einsum path.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -36,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -82,6 +93,19 @@ BWD_REL = {"bfloat16": 2 ** -7, "float32": 1e-5}
 # the gradients move by a percent or so. A broken kernel misses by the
 # gradient's own size.
 LAYER_GRAD_REL = 0.05
+# flash (K4) vs einsum ViT-B/16 logits (bf16, 12 layers), relative to
+# the largest einsum logit: the einsum path rounds scores to bf16 before
+# the softmax and the kernels keep them fp32, so every layer's attention
+# output moves by a bf16 ulp here and there, and twelve residual layers
+# carry that into the logits by a few percent of their spread at most; a
+# broken kernel misses by the spread itself
+VIT_LOGIT_REL = 0.05
+VIT_SHAPE = "vit-b16 B=32 S=197"
+VIT_LAYERS = 12
+VIT_GRANT_MIB = 4096
+VIT_STEPS = 3
+VIT_ARGV = ["--preset", "vit-b16", "--batch", "32", "--attn", "flash",
+            "--device", "cuda"]
 TRAIN_STEPS = 3
 TRAIN_ARGV = ["--preset", "llama-8b", "--mode", "train", "--attn", "flash",
               "--batch", "1", "--seq", "1024", "--steps", str(TRAIN_STEPS),
@@ -144,7 +168,9 @@ class Smoke:
         from tpushare_torch.workloads.attention import flash_attention_plain
 
         bf16, f32 = torch.bfloat16, torch.float32
-        # (label, B, H, Hkv, S, D, dtype, causal, window)
+        # (label, B, H, Hkv, S, D, dtype, causal, window); the ViT-B/16
+        # row takes q, k and v as the model hands them, [B, S, H, D]
+        # projections transposed to [B, H, S, D]
         shapes = [("llama-8b prefill S=8", 1, 32, 8, 8, 128, bf16, True, None),
                   ("llama-8b prefill S=128", 1, 32, 8, 128, 128, bf16, True,
                    None),
@@ -157,14 +183,22 @@ class Smoke:
                   ("non-causal", 1, 32, 8, 256, 128, bf16, False, None),
                   ("window 77", 1, 32, 8, 256, 128, bf16, True, 77),
                   ("fp32", 1, 8, 2, 256, 64, f32, True, None),
-                  ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None)]
+                  ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None),
+                  (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
         rows = []
         for label, B, H, Hkv, S, D, dt, causal, window in shapes:
-            q = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
-            k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
-            v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            if label == VIT_SHAPE:
+                q, k, v = (torch.randn(B, S, h, D, generator=gen,
+                                       device=dev).to(dt).transpose(1, 2)
+                           for h in (H, Hkv, Hkv))
+            else:
+                q = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+                k = torch.randn(B, Hkv, S, D, generator=gen,
+                                device=dev).to(dt)
+                v = torch.randn(B, Hkv, S, D, generator=gen,
+                                device=dev).to(dt)
             out, lse = flash.flash_fwd(q, k, v, causal, window)
             torch.cuda.synchronize()
             ref_out, ref_lse = flash_attention_plain(q, k, v, causal, window)
@@ -207,8 +241,43 @@ class Smoke:
                 f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
                 f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
                 f"({bound['flops']:.4g} FLOP, {bound['bytes']:.4g} B)")
+            row["pipelined"] = self._kernel_pipelined(
+                label, q, k, v, causal, window, out, lse, ref_out, ref_lse,
+                tol, row)
         self.results["kernel_shapes"] = rows
         self._kernels_bwd()
+
+    def _kernel_pipelined(self, label, q, k, v, causal, window, out, lse,
+                          ref_out, ref_lse, tol, row) -> dict:
+        """K4 on K1's inputs: bitwise K1's output and LSE, within TOL of
+        the plain version, and its times. Its plain version and the SDPA
+        call are K1's, timed on these inputs in K1's row."""
+        import torch
+        from tpushare_torch.kernels import flash
+
+        def kernel():
+            return flash.flash_fwd(q, k, v, causal, window, pipelined=True)
+
+        p_out, p_lse = kernel()
+        torch.cuda.synchronize()
+        if not (torch.equal(p_out, out) and torch.equal(p_lse, lse)):
+            diff = (p_out.float() - out.float()).abs().max().item()
+            raise AssertionError(f"{label}: flash_fwd_pipelined is not "
+                                 f"bitwise flash_fwd (max|dO| {diff:.3g})")
+        err_o = (p_out.float() - ref_out.float()).abs().max().item()
+        err_l = (p_lse - ref_lse).abs().max().item()
+        if not (err_o <= tol["out"] and err_l <= tol["lse"]):
+            raise AssertionError(f"{label}: flash_fwd_pipelined vs plain "
+                                 f"max|dO| {err_o:.3g}, max|dLSE| {err_l:.3g}")
+        rec = {"bitwise_flash_fwd": True, "max_abs_err_out": err_o,
+               "max_abs_err_lse": err_l, "ms": time_ms(kernel, 50),
+               "call_ms": call_ms(kernel)}
+        log(f"kernel flash_fwd_pipelined [{label}]: bitwise flash_fwd "
+            f"(output and LSE); {rec['ms']:.4f} ms ({rec['call_ms']:.4f} ms "
+            f"a call from Python) against flash_fwd {row['ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms")
+        return rec
 
     def _kernels_bwd(self):
         """K2 (dq) and K3 (dk/dv) against their plain versions, on inputs
@@ -229,7 +298,8 @@ class Smoke:
                   ("window 77", 1, 32, 8, 256, 128, bf16, True, 77, False),
                   ("fp32", 1, 8, 2, 256, 64, f32, True, None, False),
                   ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
-                   False)]
+                   False),
+                  (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(1)
         rows = []
@@ -589,6 +659,147 @@ class Smoke:
                                  f"{ENTRY_TOL}")
         self.results["entry"] = {"max_abs_diff": diff, "max_abs": scale}
 
+    # -- 7. ViT-B/16 tenant -------------------------------------------------------
+    def vit(self):
+        import shutil
+        import tempfile
+
+        import torch
+        total_mib = torch.cuda.get_device_properties(0).total_memory // 2**20
+        env = dict(os.environ, TPUSHARE_FLASH_FWD="pipelined",
+                   TPUSHARE_HBM_LIMIT_MIB=str(VIT_GRANT_MIB),
+                   TPUSHARE_HBM_CHIP_TOTAL_MIB=str(total_mib))
+        (ROOT / "build").mkdir(exist_ok=True)
+        ckpt_dir = tempfile.mkdtemp(prefix="vit-ckpt-", dir=ROOT / "build")
+        train = [*VIT_ARGV, "--mode", "train", "--steps", str(VIT_STEPS),
+                 "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+        try:
+            # -- the main path: each child resets the launch counts to 0
+            # just before player.run and reads them just after --
+            whole = run_child(train, env)
+            resumed = run_child(train, env)
+            fwd = run_child([*VIT_ARGV, "--mode", "forward", "--steps",
+                             str(VIT_STEPS)], env)
+            # -- end of the main path --
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        grant = VIT_GRANT_MIB * 2**20
+
+        def expect(run, name, steps, fwd_launches, bwd_launches):
+            got = run["launches"]
+            want = {"flash_fwd": 0, "flash_fwd_pipelined": fwd_launches,
+                    "flash_bwd_dq": bwd_launches,
+                    "flash_bwd_dkdv": bwd_launches}
+            if got != want:
+                raise AssertionError(f"vit {name}: launches {got}, expected "
+                                     f"{want} ({VIT_LAYERS} layers x {steps}"
+                                     " steps)")
+            if run["max_memory_allocated"] > grant:
+                raise AssertionError(
+                    f"vit {name}: peak {run['max_memory_allocated']} B over "
+                    f"the {VIT_GRANT_MIB} MiB grant")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"vit {name}: losses {run['losses']}")
+
+        per_step = VIT_LAYERS
+        expect(whole, "train", VIT_STEPS, per_step * VIT_STEPS,
+               per_step * VIT_STEPS)
+        if resumed["start_step"] != 2 or resumed["steps"] != VIT_STEPS:
+            raise AssertionError(f"vit resume: started at "
+                                 f"{resumed['start_step']}, ended at "
+                                 f"{resumed['steps']}")
+        expect(resumed, "resume", 1, per_step, per_step)
+        expect(fwd, "forward", VIT_STEPS, per_step * VIT_STEPS, 0)
+        if len(whole["losses"]) != VIT_STEPS:
+            raise AssertionError(f"vit train losses {whole['losses']}")
+        same_loss = resumed["losses"] == whole["losses"][-1:]
+        if not (same_loss and resumed["digest"] == whole["digest"]):
+            raise AssertionError(
+                f"vit resume: step-{VIT_STEPS} loss {resumed['losses']} vs "
+                f"{whole['losses'][-1:]}, state digest {resumed['digest']} "
+                f"vs {whole['digest']}")
+        step_s = statistics.median(whole["step_s"][1:])
+        fwd_s = statistics.median(fwd["step_s"][1:])
+        batch = int(VIT_ARGV[VIT_ARGV.index("--batch") + 1])
+        log(f"vit: ViT-B/16 B={batch} train under a {VIT_GRANT_MIB} MiB grant"
+            f" (memory fraction {whole['memory_fraction']:.4f}), "
+            f"TPUSHARE_FLASH_FWD=pipelined: losses "
+            + ", ".join(f"{x:.6g}" for x in whole["losses"])
+            + f"; launches flash_fwd_pipelined "
+            f"{whole['launches']['flash_fwd_pipelined']}, flash_fwd 0, "
+            f"flash_bwd_dq {whole['launches']['flash_bwd_dq']}, "
+            f"flash_bwd_dkdv {whole['launches']['flash_bwd_dkdv']} = "
+            f"{VIT_LAYERS} x {VIT_STEPS} each")
+        log("vit: train step times " + ", ".join(
+            f"{t * 1e3:.1f}" for t in whole["step_s"])
+            + f" ms; steady step {step_s * 1e3:.1f} ms = "
+            f"{batch / step_s:.1f} images/s; max_memory_allocated "
+            f"{whole['max_memory_allocated'] / 2**20:.1f} MiB of the "
+            f"{VIT_GRANT_MIB} MiB grant; the checkpoint at step 2 took "
+            f"{whole['save_s'][0]:.2f} s to save (not in the step times)")
+        log(f"vit: a second process resumed from step 2 and ran step "
+            f"{VIT_STEPS}: loss {resumed['losses'][0]:.6g}, parameters and "
+            f"AdamW moments bitwise the uninterrupted run's (sha256 "
+            f"{whole['digest'][:16]}); its step took "
+            f"{resumed['step_s'][0] * 1e3:.1f} ms after a restore of "
+            f"{resumed['resume_s']:.2f} s ({resumed['setup_s']:.2f} s from "
+            "the call to the first step)")
+        log("vit: forward step times " + ", ".join(
+            f"{t * 1e3:.1f}" for t in fwd["step_s"])
+            + f" ms = {batch / fwd_s:.1f} images/s; launches "
+            f"flash_fwd_pipelined {fwd['launches']['flash_fwd_pipelined']}"
+            f" = {VIT_LAYERS} x {VIT_STEPS}; max_memory_allocated "
+            f"{fwd['max_memory_allocated'] / 2**20:.1f} MiB")
+        self.vit_launches = {"vit_train": whole["launches"],
+                             "vit_resume": resumed["launches"],
+                             "vit_forward": fwd["launches"]}
+        self.results["vit"] = {
+            "train": whole, "resume": resumed, "forward": fwd,
+            "steady_step_s": step_s, "train_images_per_s": batch / step_s,
+            "forward_images_per_s": batch / fwd_s,
+            "grant_mib": VIT_GRANT_MIB,
+            "logits": self._vit_logits()}
+
+    def _vit_logits(self) -> dict:
+        """ViT-B/16 at full width and depth, random weights and images
+        from a seed: logits through K4 against the einsum path."""
+        import dataclasses
+
+        import torch
+        from tpushare_torch.workloads import vit
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cfg = vit.PRESETS_VIT["vit-b16"]
+        params = vit.init_vit_params(cfg, gen)
+        images = torch.randn(8, cfg.image, cfg.image, cfg.channels,
+                             generator=gen, device=dev)
+        old = os.environ.get("TPUSHARE_FLASH_FWD")
+        os.environ["TPUSHARE_FLASH_FWD"] = "pipelined"
+        try:
+            with torch.inference_mode():
+                flash_logits = vit.vit_forward(
+                    params, images, dataclasses.replace(cfg, attn="flash"))
+                ein_logits = vit.vit_forward(params, images, cfg)
+        finally:
+            if old is None:
+                os.environ.pop("TPUSHARE_FLASH_FWD")
+            else:
+                os.environ["TPUSHARE_FLASH_FWD"] = old
+        if flash_logits.shape != (8, cfg.classes) or not \
+                torch.isfinite(flash_logits).all():
+            raise AssertionError("vit logits: wrong shape or non-finite")
+        diff = (flash_logits - ein_logits).abs().max().item()
+        scale = ein_logits.abs().max().item()
+        same_top = (flash_logits.argmax(-1) == ein_logits.argmax(-1)).sum()
+        log(f"vit: ViT-B/16 logits (B=8, seeded images), K4 vs einsum "
+            f"max|d| {diff:.4g} of max|logit| {scale:.4g} (limit "
+            f"{VIT_LOGIT_REL} x); top-1 equal on {int(same_top)} of 8")
+        if not diff <= VIT_LOGIT_REL * scale:
+            raise AssertionError(f"vit logits: K4 vs einsum {diff:.4g} > "
+                                 f"{VIT_LOGIT_REL} x {scale:.4g}")
+        return {"max_abs_diff": diff, "max_abs": scale,
+                "top1_equal": int(same_top)}
+
     def kernel_line(self) -> list:
         """The ``{"kernels": [...]}`` records. K1: times at the largest
         serving prefill bucket, launches from the serving path (and from
@@ -603,8 +814,10 @@ class Smoke:
                "source": "tpushare_torch/csrc/flash_fwd.cu",
                "replaces": "tpushare/workloads/attention.py:279",
                "launches": self.launches,
-               "launches_by_path": {"serve": self.launches,
-                                    "train": self.train_launches[0]},
+               "launches_by_path": {
+                   "serve": self.launches, "train": self.train_launches[0],
+                   **{k: v["flash_fwd"]
+                      for k, v in self.vit_launches.items()}},
                "max_abs_err": max(r["max_abs_err_out"] for r in path),
                "ms": head["ms"], "plain_ms": head["plain_ms"],
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -621,10 +834,32 @@ class Smoke:
                 "source": "tpushare_torch/csrc/flash_bwd.cu",
                 "replaces": f"tpushare/workloads/attention.py:{line}",
                 "launches": launches,
+                "launches_by_path": {
+                    "train": launches,
+                    **{k: v[f"flash_bwd_{key}"]
+                       for k, v in self.vit_launches.items()}},
                 "max_abs_err": max(r[key]["max_abs_err"] for r in path),
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": head["library_ms"], "shape": head["shape"]})
+        # K4: times at the ViT-B/16 shape, launches from the vit path (its
+        # train run; the resumed and forward runs beside them); its plain
+        # version and the SDPA call are K1's, timed on the same inputs
+        rows = self.results["kernel_shapes"]
+        vit_row = next(r for r in rows if r["shape"] == VIT_SHAPE)
+        path = [r for r in rows if r["dtype"] == "torch.bfloat16"]
+        out.append({
+            "name": "flash_fwd_pipelined", "route": "cuda",
+            "source": "tpushare_torch/csrc/flash_fwd.cu",
+            "replaces": "tpushare/workloads/attention.py:376",
+            "launches": self.vit_launches["vit_train"]["flash_fwd_pipelined"],
+            "launches_by_path": {k: v["flash_fwd_pipelined"]
+                                 for k, v in self.vit_launches.items()},
+            "max_abs_err": max(r["pipelined"]["max_abs_err_out"]
+                               for r in path),
+            "ms": vit_row["pipelined"]["ms"], "plain_ms": vit_row["plain_ms"],
+            "bound_ms": vit_row["bound_ms"], "bound_by": vit_row["bound_by"],
+            "library_ms": vit_row["library_ms"], "shape": VIT_SHAPE})
         return out
 
 
@@ -796,7 +1031,66 @@ def check_rows(prompts, rows, steps, vocab):
             raise AssertionError("token outside the vocabulary")
 
 
-PHASES = ("card", "build", "kernels", "train", "serve", "entry")
+def run_child(argv: list, env: dict) -> dict:
+    """``player.run(argv)`` in a child process of this script (``--child``)
+    with ``env``; returns what the child reports."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--child",
+         json.dumps(argv)], env=env, capture_output=True, text=True,
+        timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(CHILD_PREFIX)]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"child player {argv} exited {proc.returncode}:"
+                           f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[0][len(CHILD_PREFIX):])
+
+
+CHILD_PREFIX = "CHILD_RESULT "
+
+
+def child(argv: list) -> int:
+    """The child of :func:`run_child`: reset the launch counts, run the
+    player, and print one ``CHILD_RESULT`` JSON line with its record, the
+    launch counts, the peak allocation and, in train mode, a sha256 of
+    every parameter and AdamW state tensor after the run."""
+    import hashlib
+
+    import torch
+    from tpushare_torch.kernels import flash, flash_bwd
+    from tpushare_torch.workloads import player
+    from tpushare_torch.workloads.checkpoint import train_state_dict
+
+    flash.LAUNCHES = flash.LAUNCHES_PIPELINED = 0
+    flash_bwd.LAUNCHES_DQ = flash_bwd.LAUNCHES_DKDV = 0
+    t0 = time.perf_counter()
+    record = player.run(argv, return_state=True)
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash.LAUNCHES,
+                "flash_fwd_pipelined": flash.LAUNCHES_PIPELINED,
+                "flash_bwd_dq": flash_bwd.LAUNCHES_DQ,
+                "flash_bwd_dkdv": flash_bwd.LAUNCHES_DKDV}
+    digest = None
+    opt_state = record.pop("opt_state", None)
+    params = record.pop("params")
+    if opt_state is not None:
+        h = hashlib.sha256()
+        for name, t in sorted(train_state_dict(params, opt_state).items()):
+            h.update(name.encode())
+            h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        digest = h.hexdigest()
+    from tpushare_torch.workloads.hbm import grant_fraction
+    print(CHILD_PREFIX + json.dumps({
+        **record, "launches": launches, "digest": digest,
+        "setup_s": wall - sum(record["step_s"]),
+        "memory_fraction": grant_fraction(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}),
+        flush=True)
+    return 0
+
+
+PHASES = ("card", "build", "kernels", "train", "serve", "entry", "vit")
 
 
 def main(argv=None) -> int:
@@ -805,6 +1099,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (a partial run prints no final result)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -815,6 +1110,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.child is not None:
+        return child(json.loads(args.child))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",

@@ -89,6 +89,29 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(monkeypatch):
     assert calls == ["kernel"] and flash.LAUNCHES == before
 
 
+def test_cuda_tensors_go_to_the_pipelined_kernel_when_asked(monkeypatch):
+    calls = []
+
+    def pipelined():
+        calls.append("pipelined")
+        raise RuntimeError("pipelined library requested")
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(flash, "_kernel_pipelined", pipelined)
+    monkeypatch.setattr(flash, "_kernel",
+                        lambda: pytest.fail("K1 asked for under pipelined"))
+    monkeypatch.setattr("tpushare_torch.workloads.attention."
+                        "flash_attention_plain", plain)
+    q, kv = _FakeCuda((1, 4, 8, 64)), _FakeCuda((1, 2, 8, 64))
+    before = (flash.LAUNCHES, flash.LAUNCHES_PIPELINED)
+    with pytest.raises(RuntimeError, match="pipelined library requested"):
+        flash.flash_fwd(q, kv, kv, False, pipelined=True)
+    assert calls == ["pipelined"]
+    assert (flash.LAUNCHES, flash.LAUNCHES_PIPELINED) == before
+
+
 @pytest.mark.parametrize("q,k,match", [
     (_FakeCuda((1, 4, 8, 64), torch.float16), _FakeCuda((1, 2, 8, 64),
                                                         torch.float16),

@@ -60,7 +60,10 @@ def test_the_scan_sees_every_module():
     assert {"tpushare_torch/kernels/flash.py",
             "tpushare_torch/kernels/flash_bwd.py", "tpushare_torch/entry.py",
             "tpushare_torch/workloads/serve.py",
-            "tpushare_torch/workloads/player.py", "chip_smoke.py"} <= names
+            "tpushare_torch/workloads/player.py",
+            "tpushare_torch/workloads/vit.py",
+            "tpushare_torch/workloads/checkpoint.py",
+            "tpushare_torch/workloads/migrate.py", "chip_smoke.py"} <= names
     tree = ast.parse("import jax\nfrom tpushare.x import y\n"
                      "def f():\n    import triton\n")
     assert list(_imports(tree)) == [("jax", True), ("tpushare.x", True),

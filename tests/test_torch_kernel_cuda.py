@@ -1,6 +1,7 @@
 """The flash-attention kernels (tpushare_torch/csrc/flash_fwd.cu and
-flash_bwd.cu) against their plain versions, on a CUDA card. Without one
-every test skips.
+flash_bwd.cu) against their plain versions, on a CUDA card, and the
+pipelined forward K4 bitwise against K1. Without a card every test
+skips.
 
 On the card (where JAX, which tests/conftest.py imports, may be absent):
 
@@ -157,3 +158,49 @@ def test_backward_kernels_read_transposed_views(cuda):
     dense = [t.contiguous() for t in args]
     for a, b in zip(got, _bwd(dense, True, None)):
         assert torch.equal(a, b)
+
+
+# K4, the pipelined forward: bitwise K1's output and LSE on every shape,
+# including ViT-B/16's (S=197, D=64, MHA, non-causal)
+PIPE_CASES = CASES + [(2, 12, 12, 197, 64, torch.bfloat16, False, None),
+                      (1, 4, 1, 256, 64, torch.bfloat16, True, None),
+                      (1, 4, 2, 384, 128, torch.bfloat16, True, 96),
+                      (1, 4, 2, 130, 64, torch.float32, False, None)]
+PIPE_IDS = [f"B{c[0]}H{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}-{str(c[5])[6:]}"
+            f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
+            for c in PIPE_CASES]
+
+
+@pytest.mark.parametrize("case", PIPE_CASES, ids=PIPE_IDS)
+def test_pipelined_is_bitwise_the_step_kernel(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    q, k, v = _qkv(cuda, B, H, Hkv, S, D, dtype)
+    before = (flash.LAUNCHES, flash.LAUNCHES_PIPELINED)
+    out, lse = flash.flash_fwd(q, k, v, causal, window, pipelined=True)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.LAUNCHES_PIPELINED) == \
+        (before[0], before[1] + 1)
+    step_out, step_lse = flash.flash_fwd(q, k, v, causal, window)
+    assert torch.equal(out, step_out) and torch.equal(lse, step_lse)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal, window)
+    tol_o, tol_l = TOL[dtype]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
+    assert (lse - ref_lse).abs().max().item() <= tol_l
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_pipelined_reads_views_off_16_byte_alignment(cuda, dtype):
+    # rows off 16-byte alignment take the synchronous loads, transposed
+    # views the strided ones; both bitwise K1
+    B, H, Hkv, S, D = 2, 4, 2, 150, 64
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    wide = [torch.randn(B, S, h, D + 1, generator=gen, device=cuda).to(dtype)
+            for h in (H, Hkv, Hkv)]
+    bshd = [torch.randn(B, S, h, D, generator=gen, device=cuda).to(dtype)
+            for h in (H, Hkv, Hkv)]
+    for q, k, v in ((t[..., 1:].transpose(1, 2) for t in wide),
+                    (t.transpose(1, 2) for t in bshd)):
+        got = flash.flash_fwd(q, k, v, True, pipelined=True)
+        want = flash.flash_fwd(q, k, v, True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

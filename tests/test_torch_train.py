@@ -169,11 +169,14 @@ def test_player_forward_on_cpu(capsys):
 
 
 REFUSED = [
-    (["--mode", "train", "--ckpt-dir", "ckpt"], NotImplementedError,
-     "item 10"),
+    # --ckpt-dir and the ViT presets are ported; what they meet of the
+    # sharded slice is still refused, naming its item
+    (["--mode", "train", "--ckpt-dir", "ckpt", "--preset",
+      "llama-moe-tiny"], NotImplementedError, "item 13"),
     (["--sp", "ring"], NotImplementedError, "item 13"),
     (["--multihost"], NotImplementedError, "item 13"),
-    (["--preset", "vit-tiny"], NotImplementedError, "item 11"),
+    (["--preset", "vit-tiny", "--multihost"], NotImplementedError,
+     "item 13"),
     (["--preset", "llama-moe-tiny"], NotImplementedError, "item 13"),
 ]
 
@@ -187,8 +190,10 @@ def test_player_refuses_unported_flags(extra, exc, match):
 
 
 @pytest.mark.parametrize("extra", [["--ckpt-dir", "ckpt"],
-                                   ["--preset", "nope"]],
-                         ids=["ckpt-dir-forward", "unknown-preset"])
+                                   ["--preset", "nope"],
+                                   ["--preset", "vit-tiny", "--sp", "ring"]],
+                         ids=["ckpt-dir-forward", "unknown-preset",
+                              "vit-sp-ring"])
 def test_player_usage_errors(extra):
     with pytest.raises(SystemExit):
         player.main(["--steps", "1", "--device", "cpu", *extra])
@@ -199,3 +204,57 @@ def test_player_raises_without_cuda():
         pytest.skip("CUDA is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         player.main(["--steps", "1"])
+
+
+VIT_TRAIN = ["--preset", "vit-tiny", "--mode", "train", "--attn", "flash",
+             "--batch", "2", "--device", "cpu"]
+
+
+def test_player_vit_train_and_forward_on_cpu(capsys):
+    record = player.run([*VIT_TRAIN, "--steps", "2"])
+    assert record["steps"] == 2 and record["start_step"] == 0
+    losses = record["losses"]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    record = player.run(["--preset", "vit-tiny", "--steps", "1", "--attn",
+                         "flash", "--batch", "2", "--device", "cpu"])
+    assert record["mode"] == "forward" and record["steps"] == 1
+    assert "step 1: " in capsys.readouterr().out
+
+
+def test_player_vit_resume_finishes_the_budget(tmp_path, capsys):
+    # uninterrupted: 3 steps, a checkpoint at step 2
+    whole = player.run([*VIT_TRAIN, "--steps", "3", "--ckpt-dir",
+                        str(tmp_path / "a"), "--ckpt-every", "2"],
+                       return_state=True)
+    assert whole["losses"][0] > whole["losses"][-1]
+    # one save (step 2), timed apart from the steps
+    assert len(whole["save_s"]) == 1 and whole["resume_s"] is not None
+    # interrupted after step 2, then resumed with the same budget
+    first = player.run([*VIT_TRAIN, "--steps", "2", "--ckpt-dir",
+                        str(tmp_path / "b"), "--ckpt-every", "2"])
+    assert first["losses"] == whole["losses"][:2]
+    resumed = player.run([*VIT_TRAIN, "--steps", "3", "--ckpt-dir",
+                          str(tmp_path / "b"), "--ckpt-every", "2"],
+                         return_state=True)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed["start_step"] == 2 and resumed["steps"] == 3
+    assert resumed["losses"] == whole["losses"][2:]
+    for a, b in zip(tm.param_leaves(resumed["params"]),
+                    tm.param_leaves(whole["params"])):
+        assert torch.equal(a, b)
+    # a budget already spent runs no step
+    done = player.run([*VIT_TRAIN, "--steps", "2", "--ckpt-dir",
+                       str(tmp_path / "b")])
+    assert done["start_step"] == 2 and done["losses"] == []
+
+
+def test_player_llama_ckpt_dir_resumes(tmp_path):
+    argv = ["--preset", "llama-tiny", "--mode", "train", "--seq", "17",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "1"]
+    first = player.run([*argv, "--steps", "1"])
+    resumed = player.run([*argv, "--steps", "2"])
+    assert first["steps"] == 1 and resumed["start_step"] == 1
+    assert len(resumed["losses"]) == 1
+    from tpushare_torch.workloads.checkpoint import TrainCheckpointer
+    assert TrainCheckpointer(str(tmp_path)).steps() == [1, 2]

@@ -1,4 +1,4 @@
-"""Wrapper of the flash-attention forward kernel (``csrc/flash_fwd.cu``).
+"""Wrappers of the flash-attention forward kernels (``csrc/flash_fwd.cu``).
 
 :func:`flash_fwd` takes the layouts of the reference's ``_flash_call``:
 q ``[B, H, S, D]``, k/v ``[B, Hkv, Skv, D]`` with Hkv dividing H, and
@@ -6,15 +6,18 @@ returns ``(out [B, H, S, D] in q's dtype, lse [B, H, S] fp32)``. On CPU
 tensors it runs the plain blockwise version
 (:func:`tpushare_torch.workloads.attention.flash_attention_plain`); on
 CUDA tensors it launches the kernel or raises. There is no fallback from
-one to the other.
+one to the other. ``pipelined=True`` launches K4, the pipelined forward
+(``tpushare_flash_fwd_pipelined``), instead of K1: the same function and
+bitwise the same results, so its plain version is K1's.
 
 The kernel takes the strides of its inputs, so the ``[B, S, H, D] ->
 [B, H, S, D]`` transposed views the model passes are read in place; only
 the last dimension must be contiguous. The outputs are new contiguous
 tensors.
 
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a run
-can show that its path went through the kernel.
+``LAUNCHES`` counts K1's launches and ``LAUNCHES_PIPELINED`` K4's (never
+plain-version calls), so a run can show which forward its path went
+through.
 """
 
 from __future__ import annotations
@@ -24,26 +27,37 @@ import ctypes
 import torch
 
 LAUNCHES = 0
+LAUNCHES_PIPELINED = 0
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB_NAME = "flash_fwd"
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _entry(name: str):
+    """The library's entry ``name``, typed; K1's and K4's share K1's
+    argument list."""
+    fn = _fns.get(name)
+    if fn is None:
         from tpushare_torch.kernels import build
         lib = build.load(_LIB_NAME)
-        fn = lib.tpushare_flash_fwd
+        fn = getattr(lib, name)
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         fn.argtypes = ([i, i, i, p, p, p, p, p, i, i, i, i, i]
                        + [ll] * 12 + [i, i, ctypes.c_float, i, p])
         fn.restype = i
         lib.tpushare_cuda_error_string.argtypes = [i]
         lib.tpushare_cuda_error_string.restype = ctypes.c_char_p
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _kernel():
+    return _entry("tpushare_flash_fwd")
+
+
+def _kernel_pipelined():
+    return _entry("tpushare_flash_fwd_pipelined")
 
 
 def _check(q, k, v):
@@ -75,11 +89,13 @@ def _check(q, k, v):
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, window: int | None = None):
+              causal: bool, window: int | None = None,
+              pipelined: bool = False):
     """Flash-attention forward; returns ``(out, lse)``. Arguments are
     validated by the caller's public API (``flash_attention``); this
-    checks what the kernel itself needs."""
-    global LAUNCHES
+    checks what the kernel itself needs. ``pipelined`` picks K4 over K1
+    on CUDA tensors; both run the same plain version on CPU tensors."""
+    global LAUNCHES, LAUNCHES_PIPELINED
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
         from tpushare_torch.workloads.attention import flash_attention_plain
@@ -88,7 +104,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd takes tensors all on cpu or all on "
                          f"cuda, got {sorted(devices)}")
     _check(q, k, v)
-    fn = _kernel()
+    fn = _kernel_pipelined() if pipelined else _kernel()
     B, H, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
@@ -109,7 +125,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         from tpushare_torch.kernels import build
         msg = build.load(_LIB_NAME).tpushare_cuda_error_string(err)
-        raise RuntimeError(f"flash_fwd launch failed ({err}): "
+        name = "flash_fwd_pipelined" if pipelined else "flash_fwd"
+        raise RuntimeError(f"{name} launch failed ({err}): "
                            f"{msg.decode() if err > 0 else 'unsupported'}")
-    LAUNCHES += 1
+    if pipelined:
+        LAUNCHES_PIPELINED += 1
+    else:
+        LAUNCHES += 1
     return out, lse

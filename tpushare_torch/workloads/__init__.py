@@ -6,8 +6,14 @@
   kernel on the card, plain blockwise version on the CPU).
 - :mod:`~tpushare_torch.workloads.model` — the llama-style decoder with
   int8 weights and the KV-cached serving forward.
+- :mod:`~tpushare_torch.workloads.vit` — the ViT encoder, the second
+  workload family.
 - :mod:`~tpushare_torch.workloads.engine` — continuous-batching decode.
 - :mod:`~tpushare_torch.workloads.serve` — the int8 serving replica.
+- :mod:`~tpushare_torch.workloads.player` — the binpack-demo tenant
+  (forward or train, either family).
+- :mod:`~tpushare_torch.workloads.checkpoint` — training checkpoint and
+  resume; :mod:`~tpushare_torch.workloads.migrate` — the migration seam.
 """
 
 from __future__ import annotations

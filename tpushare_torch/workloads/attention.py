@@ -8,8 +8,9 @@ which is TPU MXU alignment.
 
 - :func:`flash_attention` validates and runs :func:`_flash_call`, which
   goes through :func:`tpushare_torch.kernels.flash.flash_fwd`: the
-  hand-written CUDA kernel for CUDA tensors, :func:`flash_attention_plain`
-  for CPU tensors.
+  hand-written CUDA kernel for CUDA tensors (K1, or with ``fwd_impl``
+  "pipelined" K4, which returns bitwise K1's results),
+  :func:`flash_attention_plain` for CPU tensors.
 - :func:`flash_attention_plain` is the kernel's plain version: the same
   online-softmax / log-sum-exp recurrence, block by block over the keys,
   in torch ops. The CPU path and the kernel's check on the card use it.
@@ -38,6 +39,22 @@ BLOCK = 64
 XLA_BLOCK = 128
 
 _FLASH_BWD_IMPLS = ("xla", "pallas")
+_FLASH_FWD_IMPLS = ("step", "pipelined")
+
+
+def _resolve_flash_fwd(fwd_impl: str | None) -> str:
+    """The forward kernel, resolved like :func:`_resolve_flash_bwd`: the
+    argument, else ``$TPUSHARE_FLASH_FWD``, else "step". "step" is K1,
+    one kv tile a step; "pipelined" is K4, which computes tile j's
+    scores while it consumes tile j-1's, with the same results bitwise.
+    """
+    if fwd_impl is None:
+        fwd_impl = os.environ.get("TPUSHARE_FLASH_FWD", "step")
+    if fwd_impl not in _FLASH_FWD_IMPLS:
+        raise ValueError(
+            f"fwd_impl={fwd_impl!r} (or $TPUSHARE_FLASH_FWD) must be "
+            f"one of {_FLASH_FWD_IMPLS}")
+    return fwd_impl
 
 
 def _resolve_flash_bwd(bwd_impl: str | None) -> str:
@@ -156,11 +173,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _flash_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, window: int | None = None):
+                causal: bool, window: int | None = None,
+                pipelined: bool = False):
     """Run the forward; returns ``(out [B, H, S, D], lse [B, H, S] fp32)``.
-    CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (K4 with ``pipelined``, else K1), CPU
+    tensors run the plain version."""
     from tpushare_torch.kernels.flash import flash_fwd
-    return flash_fwd(q, k, v, causal=causal, window=window)
+    return flash_fwd(q, k, v, causal=causal, window=window,
+                     pipelined=pipelined)
 
 
 # -- backward -------------------------------------------------------------------
@@ -305,12 +325,14 @@ def _flash_bwd_xla(causal, res, do, window: int | None = None):
 
 class _Flash(torch.autograd.Function):
     """Flash attention with its backward (the reference's ``custom_vjp``
-    ``_flash``): the forward saves q, k, v, O and the LSE; the backward
-    runs the resolved ``bwd_impl``."""
+    ``_flash``): the forward, K1 or K4 by ``fwd_impl``, saves q, k, v, O
+    and the LSE; the backward runs the resolved ``bwd_impl``, the same
+    for both forwards."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, bwd_impl):
-        out, lse = _flash_call(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, bwd_impl, fwd_impl):
+        out, lse = _flash_call(q, k, v, causal, window,
+                               pipelined=fwd_impl == "pipelined")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.bwd_impl = causal, window, bwd_impl
         return out
@@ -324,7 +346,7 @@ class _Flash(torch.autograd.Function):
         else:
             grads = _flash_bwd_xla(ctx.causal, (q, k, v, out, lse), do,
                                    window=ctx.window)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -347,21 +369,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions on CPU tensors); "xla" the fp32 blockwise backward that
     expands K/V.
 
+    ``fwd_impl`` (or ``$TPUSHARE_FLASH_FWD``): "step", the default, runs
+    K1; "pipelined" runs K4, bitwise K1's results with another issue
+    order. Both take the same plain version on CPU tensors.
+
     ``interpret``, ``block_q`` and ``block_kv`` are TPU knobs of the
     reference (interpret mode, tile sizes): accepted and ignored, so
-    callers port unchanged. ``fwd_impl`` (or ``$TPUSHARE_FLASH_FWD``)
-    must be "step"; the pipelined forward is not ported yet.
+    callers port unchanged.
     """
     del interpret, block_q, block_kv
     bwd_impl = _resolve_flash_bwd(bwd_impl)
-    fwd_impl = fwd_impl or os.environ.get("TPUSHARE_FLASH_FWD", "step")
-    if fwd_impl == "pipelined":
-        raise NotImplementedError(
-            "TPUSHARE_FLASH_FWD=pipelined: the pipelined forward kernel "
-            "is not ported yet (ROADMAP.md Queue 2, K4)")
-    if fwd_impl != "step":
-        raise ValueError(f"fwd_impl={fwd_impl!r} (or $TPUSHARE_FLASH_FWD) "
-                         "must be one of ('step', 'pipelined')")
+    fwd_impl = _resolve_flash_fwd(fwd_impl)
     B, H, S, D = q.shape
     validate_gqa_qkv(q, k, v)
     if D > MAX_HEAD_DIM:
@@ -375,5 +393,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"window={window} must be >= 1")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _Flash.apply(q, k, v, bool(causal), window, bwd_impl)
-    return _flash_call(q, k, v, bool(causal), window)[0]
+        return _Flash.apply(q, k, v, bool(causal), window, bwd_impl,
+                            fwd_impl)
+    return _flash_call(q, k, v, bool(causal), window,
+                       pipelined=fwd_impl == "pipelined")[0]

@@ -2,7 +2,9 @@
 
 :func:`params_from_numpy` takes the reference's parameter pytree with
 every leaf already converted to a numpy array (plain, or int8 weights as
-``{"int8", "scale"}``) and returns the port's parameters. bf16 leaves
+``{"int8", "scale"}``) and returns the port's parameters, for either
+family: the llama tree of ``model.init_params`` and the ViT tree of
+``vit.init_vit_params`` have the same nesting in both packages. bf16 leaves
 (numpy dtype name ``bfloat16``) go through float32, which is lossless, so
 the port starts from bitwise the same weights. The caller does the
 JAX-to-numpy step; this module never sees a JAX array.

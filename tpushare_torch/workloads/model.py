@@ -305,33 +305,48 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
 # -- loss / train step --------------------------------------------------------
 
 def train_params(params: dict) -> dict:
-    """The trainable view of a stacked parameter tree: "embed",
-    "final_norm" and "lm_head" as leaves, and "layers" as a list with one
-    dict of leaves per layer. Every leaf is a detached view sharing the
-    stacked tensors' storage and requires a gradient; the optimizer
-    updates it in place, so the stacked tree (the one serving reads)
-    sees every step. int8 weights do not train."""
+    """The trainable view of a stacked parameter tree, for either family
+    (llama's, or ViT's from :mod:`tpushare_torch.workloads.vit`): the
+    top-level tensors as leaves, in the tree's order, and "layers" as a
+    list with one dict of leaves per layer. Every leaf is a detached view
+    sharing the stacked tensors' storage and requires a gradient; the
+    optimizer updates it in place, so the stacked tree (the one serving
+    reads) sees every step. int8 weights do not train."""
+    layers = params["layers"]
     if any(isinstance(w, dict)
-           for w in (params["lm_head"], *params["layers"].values())):
+           for w in (*params.values(), *layers.values()) if w is not layers):
         raise ValueError("int8 weights are not trainable; train the "
                          "model-dtype parameters and quantize after")
 
     def leaf(w):
         return w.detach().requires_grad_()
 
-    n_layers = next(iter(params["layers"].values())).shape[0]
-    return {"embed": leaf(params["embed"]),
-            "layers": [{n: leaf(w[i]) for n, w in params["layers"].items()}
-                       for i in range(n_layers)],
-            "final_norm": leaf(params["final_norm"]),
-            "lm_head": leaf(params["lm_head"])}
+    n_layers = next(iter(layers.values())).shape[0]
+    per_layer = [{n: leaf(w[i]) for n, w in layers.items()}
+                 for i in range(n_layers)]
+    return {k: per_layer if k == "layers" else leaf(w)
+            for k, w in params.items()}
 
 
-def param_leaves(params: dict) -> list:
-    """The leaves of a :func:`train_params` tree, in a fixed order."""
-    return ([params["embed"]]
-            + [w for lp in params["layers"] for w in lp.values()]
-            + [params["final_norm"], params["lm_head"]])
+def named_leaves(params, prefix: str = ""):
+    """(path, tensor) for every leaf of a trainable tree, depth first in
+    insertion order (the optimizer's parameter order); paths join dict
+    keys and list indices with dots, e.g. ``layers.3.wq``. The walk knows
+    no family."""
+    if isinstance(params, torch.Tensor):
+        yield prefix, params
+        return
+    items = params.items() if isinstance(params, dict) else enumerate(params)
+    for key, value in items:
+        yield from named_leaves(value, f"{prefix}.{key}" if prefix
+                                else str(key))
+
+
+def param_leaves(params) -> list:
+    """The leaves of a trainable tree in :func:`named_leaves` order: for
+    llama's embed, each layer's weights, final_norm, lm_head. One
+    :class:`AdamW` serves both families."""
+    return [w for _, w in named_leaves(params)]
 
 
 def next_token_loss(logits: torch.Tensor, aux: torch.Tensor,
@@ -356,7 +371,8 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 class AdamW:
     """``optax.adamw(learning_rate)`` for the port: :meth:`init` plays
     ``tx.init`` and returns a ``torch.optim.AdamW`` over the leaves of a
-    :func:`train_params` tree with optax's defaults: betas (0.9, 0.999),
+    trainable tree (:func:`param_leaves`, either family) with optax's
+    defaults: betas (0.9, 0.999),
     eps 1e-8 added outside the square root, decoupled weight decay 1e-4
     (torch's own default is 1e-2). The state takes the parameters' dtype,
     as optax's does. On CUDA it is the fused implementation, one pass over
