@@ -8,11 +8,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card     -- name, power limit, torch and CUDA versions; TF32 off.
 2. build    -- the hand-written kernels, built from ``tpushare_torch/csrc``
-               (one ``nvcc`` per source, all started together).
+               (one ``nvcc`` per source, all started together), with
+               ptxas's registers, stack, spills and wgmma serialisation
+               notes per kernel; a spill in a bf16 forward kernel fails.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving and training paths give it, with
-               times; the backward kernels also launch twice for bitwise
-               equal gradients.
+               times, the ratio to SDPA and the share of the bound; a
+               one-CTA probe of the forward kernels' kv tile step; the
+               backward kernels also launch twice for bitwise equal
+               gradients.
 4. train    -- the trainer (``player --mode train --attn flash``) at
                llama-8b width and depth, three AdamW steps on one batch of
                1024 tokens; the launch counts must show every layer's
@@ -150,15 +154,28 @@ class Smoke:
         t0 = time.perf_counter()
         built = build.build(verbose=True)
         wall = time.perf_counter() - t0
+        reports = {}
         for name, info in built.items():
-            ptxas = [ln.strip() for ln in info["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]
             log(f"build {name}: {info['seconds']:.1f} s -> "
                 f"{Path(info['path']).relative_to(ROOT)}")
-            for ln in ptxas:
-                log(f"  ptxas {ln}")
+            reports[name] = ptxas_report(info["log"])
+            highest = sass_highest_register(info["path"])
+            for r in reports[name]:
+                r["highest_register"] = highest.get(r["kernel"])
+                log(f"  ptxas {r['kernel']}: {r['registers']} registers, "
+                    f"{r['stack']} bytes stack, {r['spill_stores']} / "
+                    f"{r['spill_loads']} bytes spill stores / loads; "
+                    f"machine code up to R{r['highest_register']}"
+                    + "".join(f"\n    NOTE {s}" for s in r["serialized"]))
         log(f"build: all kernels in {wall:.1f} s")
         self.results["build_s"] = wall
+        self.results["ptxas"] = reports
+        spills = [r["kernel"] for rs in reports.values() for r in rs
+                  if "flash_fwd_tc_kernel" in r["kernel"]
+                  and (r["spill_stores"] or r["spill_loads"])]
+        if spills:
+            raise AssertionError(f"ptxas spills in the bf16 Hopper "
+                                 f"kernels: {spills}")
 
     # -- 3. kernels ------------------------------------------------------------
     def kernels(self):
@@ -232,20 +249,63 @@ class Smoke:
                    "window": window, "max_abs_err_out": err_o,
                    "max_abs_err_lse": err_l, "ms": ms, "call_ms": host_ms,
                    "plain_ms": plain_ms,
-                   "library_ms": lib_ms, **bound}
+                   "library_ms": lib_ms, **bound,
+                   "sdpa_ratio": ms / lib_ms,
+                   "bound_share": bound["bound_ms"] / ms}
             rows.append(row)
             log(f"kernel flash_fwd [{label}] B={B} H={H} Hkv={Hkv} S={S} "
                 f"D={D} {str(dt)[6:]} causal={causal} window={window}: "
                 f"max|dO| {err_o:.3g} max|dLSE| {err_l:.3g}; "
                 f"{ms:.4f} ms ({host_ms:.4f} ms a call from Python), "
-                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-                f"({bound['flops']:.4g} FLOP, {bound['bytes']:.4g} B)")
+                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+                f"(ratio {row['sdpa_ratio']:.2f}), bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({bound['flops']:.4g} FLOP, {bound['bytes']:.4g} B; "
+                f"share {row['bound_share']:.3f})")
             row["pipelined"] = self._kernel_pipelined(
                 label, q, k, v, causal, window, out, lse, ref_out, ref_lse,
                 tol, row)
         self.results["kernel_shapes"] = rows
+        self._tile_step_probe()
         self._kernels_bwd()
+
+    def _tile_step_probe(self):
+        """The latency of one kv tile step: K1 and K4 on one CTA (B = H =
+        1, one 128-row q tile, causal off) over n and 2n 64-key tiles; the
+        difference over n is one step's time."""
+        import torch
+        from tpushare_torch.kernels import flash
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        n = 16
+        out = []
+        for D in (64, 128):
+            q = torch.randn(1, 1, 128, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            rec = {"D": D, "n_tiles": n}
+            for name, pipelined in (("flash_fwd", False),
+                                    ("flash_fwd_pipelined", True)):
+                times = []
+                for tiles in (n, 2 * n):
+                    k, v = (torch.randn(1, 1, tiles * 64, D, generator=gen,
+                                        device=dev).to(torch.bfloat16)
+                            for _ in range(2))
+                    times.append(time_ms(
+                        lambda: flash.flash_fwd(q, k, v, False,
+                                                pipelined=pipelined), 50))
+                rec[name] = {"ms_n": times[0], "ms_2n": times[1],
+                             "step_us": (times[1] - times[0]) / n * 1e3}
+            out.append(rec)
+            log(f"tile step D={D}: one CTA over {n} and {2 * n} kv tiles: "
+                f"flash_fwd {rec['flash_fwd']['ms_n']:.4f} / "
+                f"{rec['flash_fwd']['ms_2n']:.4f} ms = "
+                f"{rec['flash_fwd']['step_us']:.3f} us a step; "
+                f"flash_fwd_pipelined "
+                f"{rec['flash_fwd_pipelined']['ms_n']:.4f} / "
+                f"{rec['flash_fwd_pipelined']['ms_2n']:.4f} ms = "
+                f"{rec['flash_fwd_pipelined']['step_us']:.3f} us a step")
+        self.results["tile_step"] = out
 
     def _kernel_pipelined(self, label, q, k, v, causal, window, out, lse,
                           ref_out, ref_lse, tol, row) -> dict:
@@ -272,11 +332,14 @@ class Smoke:
         rec = {"bitwise_flash_fwd": True, "max_abs_err_out": err_o,
                "max_abs_err_lse": err_l, "ms": time_ms(kernel, 50),
                "call_ms": call_ms(kernel)}
+        rec["sdpa_ratio"] = rec["ms"] / row["library_ms"]
+        rec["bound_share"] = row["bound_ms"] / rec["ms"]
         log(f"kernel flash_fwd_pipelined [{label}]: bitwise flash_fwd "
             f"(output and LSE); {rec['ms']:.4f} ms ({rec['call_ms']:.4f} ms "
             f"a call from Python) against flash_fwd {row['ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms")
+            f"sdpa {row['library_ms']:.4f} ms (ratio "
+            f"{rec['sdpa_ratio']:.2f}), bound {row['bound_ms']:.4f} ms "
+            f"(share {rec['bound_share']:.3f})")
         return rec
 
     def _kernels_bwd(self):
@@ -821,7 +884,9 @@ class Smoke:
                "max_abs_err": max(r["max_abs_err_out"] for r in path),
                "ms": head["ms"], "plain_ms": head["plain_ms"],
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-               "library_ms": head["library_ms"], "shape": head["shape"]}
+               "library_ms": head["library_ms"], "shape": head["shape"],
+               "sdpa_ratio": head["sdpa_ratio"],
+               "bound_share": head["bound_share"]}
         rows = self.results["bwd_kernel_shapes"]
         head = next(r for r in rows if r["shape"] == "llama-8b train S=1023")
         path = [r for r in rows if r["dtype"] == "torch.bfloat16"]
@@ -859,8 +924,86 @@ class Smoke:
                                for r in path),
             "ms": vit_row["pipelined"]["ms"], "plain_ms": vit_row["plain_ms"],
             "bound_ms": vit_row["bound_ms"], "bound_by": vit_row["bound_by"],
-            "library_ms": vit_row["library_ms"], "shape": VIT_SHAPE})
+            "library_ms": vit_row["library_ms"], "shape": VIT_SHAPE,
+            "sdpa_ratio": vit_row["pipelined"]["sdpa_ratio"],
+            "bound_share": vit_row["pipelined"]["bound_share"]})
         return out
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_tc_kernel<128, true>`` for a mangled kernel name."""
+    import re
+    m = re.search(r"(flash_[a-z_]*kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    rest = m.group(2)
+    args = (["bf16"] if "bfloat16" in rest
+            else ["fp32"] if rest.startswith("f") else [])
+    args += re.findall(r"Li(\d+)", rest)
+    args += ["true" if b == "1" else "false"
+             for b in re.findall(r"Lb([01])", rest)]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def sass_highest_register(library: Path) -> dict:
+    """The highest register each kernel's machine code names, by kernel
+    name (``cuobjdump -sass``, beside ``nvcc``): what a warp-specialised
+    kernel's consumer path really uses, which ptxas's launch count does
+    not show. Empty where the toolkit has no cuobjdump."""
+    import re
+    from tpushare_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = 0
+        elif name is not None:
+            for r in re.findall(r"\bR(\d+)\b", ln):
+                out[name] = max(out[name], int(r))
+    return out
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel that ``nvcc -Xptxas -v`` compiled: its name with the
+    template arguments, registers (at launch), stack and spill bytes, and
+    the "wgmma ... serialized" notes ptxas gave it."""
+    import re
+
+    records, notes, cur = [], {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1)), "mangled": m.group(1),
+                   "registers": None, "stack": None, "spill_stores": None,
+                   "spill_loads": None, "serialized": []}
+            records.append(cur)
+            continue
+        m = re.search(r"\((C75\d\d)\).*?serialized (due to .*?) in the "
+                      r"function '(\S+)'", ln)
+        if m:
+            notes.setdefault(m.group(3), []).append(
+                f"{m.group(1)} wgmma serialized {m.group(2)}")
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for r in records:
+        r["serialized"] = notes.get(r.pop("mangled"), [])
+    return records
 
 
 def visible_pairs(S, causal, window) -> int:

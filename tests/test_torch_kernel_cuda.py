@@ -188,6 +188,39 @@ def test_pipelined_is_bitwise_the_step_kernel(cuda, case):
     assert (lse - ref_lse).abs().max().item() <= tol_l
 
 
+bf16 = torch.bfloat16
+# the bf16 Hopper kernels' edges: 128-row q tiles of two 64-row
+# warpgroups, 64-key kv tiles, TMA boxes past S and Skv; a window of 200
+# across tiles; GQA group 8; every head dim (each its own swizzle); a grid
+# of 768 CTAs, several waves of one CTA an SM
+EDGE_CASES = ([(1, 8, 2, S, 128, bf16, causal, None)
+               for S in (1, 63, 65, 127, 129, 257)
+               for causal in (True, False)]
+              + [(1, 4, 2, 512, 64, bf16, True, 200),
+                 (1, 32, 4, 256, 128, bf16, True, None)]
+              + [(2, 4, 2, 200, D, bf16, True, None) for D in (16, 32, 64,
+                                                               128)]
+              + [(16, 12, 12, 197, 64, bf16, False, None)])
+EDGE_IDS = [f"B{c[0]}H{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}"
+            f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
+            for c in EDGE_CASES]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=EDGE_IDS)
+def test_tile_edges_match_plain_and_pipelined_is_bitwise(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    q, k, v = _qkv(cuda, B, H, Hkv, S, D, dtype, seed=S)
+    out, lse = flash.flash_fwd(q, k, v, causal, window)
+    p_out, p_lse = flash.flash_fwd(q, k, v, causal, window, pipelined=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal, window)
+    tol_o, tol_l = TOL[dtype]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
+    assert (lse - ref_lse).abs().max().item() <= tol_l
+    assert torch.equal(p_out, out) and torch.equal(p_lse, lse)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_pipelined_reads_views_off_16_byte_alignment(cuda, dtype):

@@ -1,65 +1,128 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface
 // that tpushare_torch/kernels/flash.py loads through ctypes.
 //
-// Two kernels: flash_fwd_kernel (K1, below) and its pipelined variant
-// flash_fwd_pipelined_kernel (K4, further below, with its own note), which
-// returns bitwise K1's results.
+// Two kernels, each in two designs chosen by dtype:
+// - K1, tpushare_flash_fwd, replaces the TPU kernel
+//   tpushare/workloads/attention.py:_flash_kernel (launched by
+//   _flash_call);
+// - K4, tpushare_flash_fwd_pipelined, replaces
+//   tpushare/workloads/attention.py:_flash_kernel_pipelined (the same
+//   pallas_call, selected with TPUSHARE_FLASH_FWD=pipelined). It computes
+//   K1's function and returns bitwise K1's output and LSE: every tile goes
+//   through the same device functions on the same operands in the same
+//   online-softmax order; only the issue order changes.
 //
-// K1 replaces the TPU kernel tpushare/workloads/attention.py:_flash_kernel
-// (launched by _flash_call). It computes the same function: causal or
-// non-causal attention over q [B,H,S,D] and k/v [B,Hkv,Skv,D], optional
-// sliding window, GQA-native (query head h reads kv head h / (H/Hkv), the
-// kv heads are never expanded), online softmax with a running max, a
-// running denominator and an fp32 accumulator. Outputs: O in q's dtype
-// and the log-sum-exp LSE as fp32 [B,H,S].
+// The function: causal or non-causal attention over q [B,H,S,D] and k/v
+// [B,Hkv,Skv,D], optional sliding window, GQA-native (query head h reads
+// kv head h / (H/Hkv), the kv heads are never expanded), online softmax
+// with a running max, a running denominator and an fp32 accumulator.
+// Outputs: O in q's dtype and the log-sum-exp LSE as fp32 [B,H,S].
 //
-// The reference contract it keeps:
+// The reference contract both designs keep:
 // - the softmax scale is folded into q once, in fp32, and rounded to the
-//   storage dtype (here while q is staged into shared memory);
+//   storage dtype (attention.py:500);
 // - p is rounded to v's dtype before the PV product;
 // - a row with no visible key gets LSE -inf and output 0, and the
 //   exp(m - shift) rescale is guarded while the running max is -inf;
 // - ragged S: keys past Skv are masked, query rows past S are neither
 //   computed into the output nor written;
 // - causal: the kv loop stops at the diagonal tile; window: it starts at
-//   the window floor's tile.
+//   the window floor's tile. Interior tiles run the softmax without any
+//   compare, edge tiles (pad, causal diagonal, window floor) with them.
 //
-// Design. The TPU kernel walks a sequential kv grid axis with its state
-// in VMEM scratch; blocks here run in parallel in no order, so one block
-// owns one (q tile, head, batch) triple and walks its kv tiles in a loop.
-// Tiles are 64 query rows x 64 keys, sized for shared memory (the TPU's
-// 1024 x 1024 tiles do not carry over): the q, k and v tiles, the fp32
-// score tile, the probability tile and the fp32 output accumulator all
-// live in shared memory (113 KB for bf16 at D=128). The TPU kernel's mask
-// classes (clean, diagonal, floor, pad) become one flag per kv tile: the
-// interior tiles run the softmax without any compare, the edge tiles with
-// them.
-// bf16 runs both products on the tensor cores through WMMA 16x16x16
-// fragments with fp32 accumulation (one warp per 16 query rows); fp32
-// runs them as scalar FMAs, since the tensor cores have no full-fp32 mode.
-//
-// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s):
-// the causal work is 4*B*H*D*(visible pairs), about 2*B*H*D*S^2 FLOPs,
-// over (|q|+|k|+|v|+|o|) = 5*B*H*S*D bf16 bytes at GQA group 4: 0.4*S
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the
+// causal work is 4*B*H*D*(visible pairs), about 2*B*H*D*S^2 FLOPs, over
+// (|q|+|k|+|v|+|o|) = 5*B*H*S*D bf16 bytes at GQA group 4: 0.4*S
 // operations per byte against the card's 295. Below S of about 740 the
 // kernel is bound by bytes, above by operations; the serving prefill
-// buckets (S <= 512) sit on the bytes side. This first
-// version does not reach either bound: every tile passes through shared
-// memory between the two products, loads are not overlapped with compute
-// (no cp.async or TMA) and WMMA issues synchronous mma, not wgmma. Its
-// times beside the bound are in PERF.md; a faster kernel is later work.
+// buckets (S <= 512) and ViT-B/16 (S = 197) sit on the bytes side, the
+// llama-8b training sequence (S = 1023) on the operations side. Either way
+// what held the first design back was neither: it was the latency of one
+// kv tile step (synchronous loads, the score, probability and output
+// tiles round-tripping through shared memory, four block barriers and
+// synchronous WMMA per tile). The bf16 design below removes that chain.
+//
+// bf16: the Hopper design (flash_fwd_tc_kernel, both K1 and K4).
+// - One CTA per (128-row q tile, head, batch): a producer warpgroup and
+//   two consumer warpgroups of 64 rows each (384 threads). The kv loop
+//   runs inside the CTA. The grid's slowest axis is the q tile, largest
+//   first, so the longest causal rows start first.
+// - Producer: one thread issues TMA loads, Q once and K_j, V_j into a
+//   ring of STAGES = 3 shared-memory stages, each stage with a full
+//   barrier for K, one for V, and an empty barrier that all eight
+//   consumer warps arrive on. The tensor maps are 4-D, (D, S, H, B) with
+//   the caller's strides, encoded on the host for every call and passed
+//   as __grid_constant__ parameters, so the model's transposed
+//   [B,S,H,D] -> [B,H,S,D] views are read in place; TMA zero-fills rows
+//   past S and Skv. Rows that are not 16-byte aligned (TMA cannot read
+//   them) are written by the same producer warpgroup with plain loads
+//   into the same swizzled layout, arriving on the same barriers; the
+//   consumers do not change.
+// - Consumers: after Q lands each warpgroup rewrites its 64 rows in
+//   shared memory as bf16(float(q) * scale), fences the async proxy and
+//   syncs its warpgroup. S = Q K^T is wgmma m64n64k16 with A = Q and B =
+//   K, both K-major from shared memory; the fp32 scores stay in
+//   registers; the mask and the online softmax run on the accumulator
+//   fragment (row max and sum are four-lane shuffles); P is rounded to
+//   bf16 in registers and is the A operand of O += P V (wgmma m64nNk16,
+//   A from registers, B = V MN-major with the transpose flag), O an fp32
+//   register accumulator rescaled in registers. The epilogue normalises
+//   O and stores it with guarded direct stores; the LSE likewise.
+// - K4 adds the TPU kernel's pipelining, block j's scores computed while
+//   block j-1 is still being consumed, as FlashAttention-3's
+//   intra-warpgroup overlap: each consumer warpgroup issues S_j = Q K_j^T
+//   and then tile j-1's PV product, both asynchronous, and runs tile j's
+//   mask and softmax while the PV product is in flight; P_j and O's
+//   rescale by alpha_j wait for it. O sees K1's operations in K1's
+//   order (rescale by alpha_j, then add P_j V_j), which keeps K4 bitwise.
+//   The order that computes S_{j+1} during tile j's softmax needs two
+//   score accumulators at once, S_j and S_{j+1} beside O and P (about 150
+//   live registers at D = 128): ptxas 12.9 allocates this kernel's
+//   consumer path within the launch bound's 168 registers whatever
+//   setmaxnreg raises them to, and that order spilled and serialised
+//   its wgmma at D = 128. This one needs one accumulator.
+// - Registers: setmaxnreg gives the producer 40 and the consumers 232 a
+//   thread (128 * 40 + 256 * 232 = 64,512 of the SM's 65,536); with 24
+//   the producer's plain-load path spills. The consumer path fits the
+//   168 that ptxas allocates it (chip_smoke.py's build phase prints the
+//   highest register each kernel's machine code uses).
+// - Every wgmma stays asynchronous only if ptxas can track the groups:
+//   the role branch is on a warp-uniform (shuffled) warpgroup index, no
+//   group is in flight between two tiles on any path, the first k-step's
+//   outputs are write-only, and register fences keep P's packing and O's
+//   rescale ahead of the next issue. ptxas reports each lapse as "wgmma
+//   ... serialized" (C7510-C7520); the build phase of chip_smoke.py
+//   prints those lines.
+//
+// Tile sizes and why:
+// - BQ = 128: two consumer warpgroups of wgmma's 64 rows share every K and
+//   V tile the producer loads, halving the kv traffic of a 64-row tile.
+// - BK = 64 at every head dim: at D = 128 the score accumulator (32),
+//   O (64) and P (16) of K4 then fit the 168 registers ptxas allocates,
+//   K1 and K4 share the tile (K4 is bitwise K1 only on the same tile),
+//   and the plain version's 64-key block stays the kernels' kv tile.
+// - Swizzle per D: rows of 2*D bytes take the 32-byte swizzle at D = 16,
+//   the 64-byte one at D = 32 and the 128-byte one at D >= 64; at D = 128
+//   a row is 256 bytes, so each tile is two 64-column boxes ("chunks").
+//   Every tile starts on a 1024-byte boundary, the swizzle's period.
+// - STAGES = 3: shared memory at D = 128 is Q 32 KB + 3 x (K 16 + V 16)
+//   KB = 128 KB of the 227; one CTA fits an SM by registers anyway.
+//
+// fp32 keeps the first design's scalar kernels (flash_fwd_kernel and
+// flash_fwd_pipelined_kernel below): the tensor cores have no full-fp32
+// mode and fp32 lies on no main path. One block per (64-row q tile, head,
+// batch), 64-key tiles in shared memory, scalar FMA products; K4's
+// variant splits the block into a score group and a softmax/PV group.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
-
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per kv tile
-constexpr int NTHREADS = 128;  // four warps; warp w owns rows 16w..16w+15
 
 using bf16 = __nv_bfloat16;
 
@@ -77,57 +140,51 @@ struct Params {
   int causal;
   int window;  // 0 = no window
   float scale;
-  int vec;  // every q/k/v row start is 16-byte aligned
+  int vec;  // q/k/v are TMA-able: 16-byte aligned base and outer strides
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// ============================================================================
+// fp32: the scalar kernels
+// ============================================================================
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int BQ = 64;         // query rows per block
+constexpr int BK = 64;         // keys per kv tile (also the bf16 design's)
+constexpr int NTHREADS = 128;  // four warps
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
 }
 
-// Shared-memory layout of one block. Row pitches are padded: bf16 tiles
-// by 8 elements (WMMA needs a pitch that is a multiple of 16 bytes),
-// fp32 q/k/v tiles by 1 element (the scalar products read k columns
-// across a half-warp, and an odd pitch puts them in distinct banks).
-template <typename T, int D>
+// Shared-memory layout of one fp32 block. q/k/v rows are padded by one
+// element: the scalar products read k columns across a half-warp, and an
+// odd pitch puts them in distinct banks.
+template <int D>
 struct Layout {
-  static constexpr bool kTensorCore = sizeof(T) == 2;
-  static constexpr int LDT = D + (kTensorCore ? 8 : 1);
+  static constexpr int LDT = D + 1;
   static constexpr int LDS = BK + 4;
   static constexpr int LDP = BK + 8;
   static constexpr int LDO = D + 4;
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = align128(q_off + sizeof(T) * BQ * LDT);
-  static constexpr size_t v_off = align128(k_off + sizeof(T) * BK * LDT);
-  static constexpr size_t s_off = align128(v_off + sizeof(T) * BK * LDT);
+  static constexpr size_t k_off = align128(q_off + sizeof(float) * BQ * LDT);
+  static constexpr size_t v_off = align128(k_off + sizeof(float) * BK * LDT);
+  static constexpr size_t s_off = align128(v_off + sizeof(float) * BK * LDT);
   static constexpr size_t p_off = align128(s_off + sizeof(float) * BQ * LDS);
-  static constexpr size_t o_off = align128(p_off + sizeof(T) * BQ * LDP);
+  static constexpr size_t o_off = align128(p_off + sizeof(float) * BQ * LDP);
   static constexpr size_t m_off = align128(o_off + sizeof(float) * BQ * LDO);
   static constexpr size_t l_off = align128(m_off + sizeof(float) * BQ);
   static constexpr size_t bytes = align128(l_off + sizeof(float) * BQ);
 };
 
 // Copy a 64-row tile of D columns from global memory into shared memory,
-// zero-filling rows >= rows_valid. With `scale` set, each element becomes
-// round_T(float(x) * scale): the reference's once-folded softmax scale.
-template <typename T, int D, int LD, int NT = NTHREADS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
+// zero-filling rows >= rows_valid, times `scale` where `scaled` is set.
+template <int D, int NT = NTHREADS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride,
                                           int rows_valid, bool vec,
                                           bool scaled, float scale,
                                           int tid) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int LD = Layout<D>::LDT;
+  constexpr int VEC = 4;  // floats in 16 bytes
   constexpr int VPR = D / VEC;
   if (vec) {
     for (int idx = tid; idx < 64 * VPR; idx += NT) {
@@ -137,11 +194,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
       if (r < rows_valid) {
         raw = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
       }
-      const T* vals = reinterpret_cast<const T*>(&raw);
+      const float* vals = reinterpret_cast<const float*>(&raw);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        T x = vals[e];
-        if (scaled) x = from_f<T>(to_f(x) * scale);
+        float x = vals[e];
+        if (scaled) x = x * scale;
         dst[r * LD + c + e] = x;
       }
     }
@@ -149,48 +206,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     for (int idx = tid; idx < 64 * D; idx += NT) {
       const int r = idx / D;
       const int c = idx % D;
-      T x = r < rows_valid ? src[r * row_stride + c] : from_f<T>(0.f);
-      if (scaled) x = from_f<T>(to_f(x) * scale);
+      float x = r < rows_valid ? src[r * row_stride + c] : 0.f;
+      if (scaled) x = x * scale;
       dst[r * LD + c] = x;
     }
   }
 }
 
-// ---- S = Q K^T into the fp32 score tile ------------------------------------
-
-template <int D>
-__device__ __forceinline__ void scores_tc(const bf16* Qs, const bf16* Ks,
-                                          float* Ss, int tid) {
-  using namespace nvcuda;
-  using L = Layout<bf16, D>;
-  const int warp = tid / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      // K stored [key][d] row-major is K^T in column-major order
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, Ks + n * 16 * L::LDT + kk, L::LDT);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + n * 16, acc[n],
-                            L::LDS, wmma::mem_row_major);
-  }
-}
-
+// S = Q K^T into the fp32 score tile
 template <int D>
 __device__ __forceinline__ void scores_scalar(const float* Qs,
                                               const float* Ks, float* Ss,
                                               int tid) {
-  using L = Layout<float, D>;
+  using L = Layout<D>;
   // thread (ty, tx) owns rows ty + 8i and columns tx + 16j
   const int ty = tid >> 4;
   const int tx = tid & 15;
@@ -217,38 +245,11 @@ __device__ __forceinline__ void scores_scalar(const float* Qs,
       Ss[(ty + 8 * i) * L::LDS + tx + 16 * j] = acc[i][j];
 }
 
-// ---- O += P V into the fp32 accumulator tile -------------------------------
-
-template <int D>
-__device__ __forceinline__ void pv_tc(const bf16* Ps, const bf16* Vs,
-                                      float* Os, int tid) {
-  using namespace nvcuda;
-  using L = Layout<bf16, D>;
-  const int warp = tid / 32;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[BK / 16];
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    wmma::load_matrix_sync(a[kk], Ps + warp * 16 * L::LDP + kk * 16, L::LDP);
-  }
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    float* out = Os + warp * 16 * L::LDO + n * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, out, L::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, Vs + kk * 16 * L::LDT + n * 16, L::LDT);
-      wmma::mma_sync(acc, a[kk], b, acc);
-    }
-    wmma::store_matrix_sync(out, acc, L::LDO, wmma::mem_row_major);
-  }
-}
-
+// O += P V into the fp32 accumulator tile
 template <int D>
 __device__ __forceinline__ void pv_scalar(const float* Ps, const float* Vs,
                                           float* Os, int tid) {
-  using L = Layout<float, D>;
+  using L = Layout<D>;
   constexpr int NC = D / 16;
   const int ty = tid >> 4;
   const int tx = tid & 15;
@@ -276,16 +277,14 @@ __device__ __forceinline__ void pv_scalar(const float* Ps, const float* Vs,
       Os[(ty + 8 * i) * L::LDO + tx + 16 * c] = acc[i][c];
 }
 
-// ---- one online-softmax update from the score tile -------------------------
-// Two threads per query row, 32 columns each. MASK selects the edge-tile
-// phase (pad / causal diagonal / window floor compares); interior tiles
-// run with MASK = false and no compare at all.
-template <typename T, int D, bool MASK>
-__device__ __forceinline__ void softmax_step(const float* Ss, T* Ps,
+// One online-softmax update from the score tile. Two threads per query
+// row, 32 columns each. MASK selects the edge-tile phase.
+template <int D, bool MASK>
+__device__ __forceinline__ void softmax_step(const float* Ss, float* Ps,
                                              float* Os, float* m_s,
                                              float* l_s, int i0, int j0,
                                              const Params& p, int tid) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   constexpr int HALF = BK / 2;
   const int r = tid >> 1;
   const int half = tid & 1;
@@ -317,7 +316,7 @@ __device__ __forceinline__ void softmax_step(const float* Ss, T* Ps,
 #pragma unroll
   for (int c = 0; c < HALF; ++c) {
     const float pr = expf(sv[c] - shift);  // masked entries give exactly 0
-    Ps[r * L::LDP + half * HALF + c] = from_f<T>(pr);
+    Ps[r * L::LDP + half * HALF + c] = pr;
     sum += pr;
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -332,54 +331,52 @@ __device__ __forceinline__ void softmax_step(const float* Ss, T* Ps,
   }
 }
 
-// ---- pieces shared by both kernels ----------------------------------------
-
 // The block's q tile, scaled, into Qs; the accumulator and the running
 // max and denominator reset. Called by every thread of the block.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void init_tile(T* Qs, float* Os, float* m_s,
-                                          float* l_s, const T* qg, int i0,
-                                          const Params& p, int tid) {
-  using L = Layout<T, D>;
-  load_tile<T, D, L::LDT, NT>(Qs, qg + i0 * p.q_ss, p.q_ss,
-                              min(BQ, p.S - i0), p.vec != 0, true, p.scale,
-                              tid);
-  for (int idx = tid; idx < BQ * L::LDO; idx += NT) Os[idx] = 0.f;
+template <int D, int NT>
+__device__ __forceinline__ void init_tile(float* Qs, float* Os, float* m_s,
+                                          float* l_s, const float* qg,
+                                          int i0, const Params& p, int tid) {
+  load_tile<D, NT>(Qs, qg + i0 * p.q_ss, p.q_ss, min(BQ, p.S - i0),
+                   p.vec != 0, true, p.scale, tid);
+  for (int idx = tid; idx < BQ * Layout<D>::LDO; idx += NT) Os[idx] = 0.f;
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
 }
 
-// kv tiles the q tile at i0 can see: [*j_begin, *j_end)
-__device__ __forceinline__ void kv_range(int i0, const Params& p,
-                                         int* j_begin, int* j_end) {
-  const int last_row = i0 + BQ - 1;
+// kv tiles a q tile of `rows` rows at i0 can see: [*j_begin, *j_end)
+__device__ __forceinline__ void kv_range(int i0, int rows,
+                                                  const Params& p,
+                                                  int* j_begin, int* j_end) {
+  const int last_row = i0 + rows - 1;
   const int n_kv = (p.Skv + BK - 1) / BK;
   *j_end = p.causal ? min(n_kv, last_row / BK + 1) : n_kv;
   *j_begin = p.window > 0 ? max(i0 - (p.window - 1), 0) / BK : 0;
 }
 
-// edge tiles: padded keys, the causal diagonal, the window floor
-__device__ __forceinline__ bool is_edge(int i0, int j0, const Params& p) {
-  const int last_row = i0 + BQ - 1;
+// edge tiles of a q tile of `rows` rows at i0: padded keys, the causal
+// diagonal, the window floor
+__device__ __forceinline__ bool is_edge(int i0, int rows, int j0,
+                                        const Params& p) {
+  const int last_row = i0 + rows - 1;
   return (j0 + BK > p.Skv) || (p.causal && j0 + BK - 1 > i0) ||
          (p.window > 0 && j0 < last_row - (p.window - 1));
 }
 
 // normalise and emit; query rows past S are not written
-template <typename T, int D, int NT>
+template <int D, int NT>
 __device__ __forceinline__ void emit_tile(const float* Os, const float* m_s,
                                           const float* l_s, int i0, int h,
                                           int b, const Params& p, int tid) {
-  using L = Layout<T, D>;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  using L = Layout<D>;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D;
     const int c = idx % D;
     if (i0 + r < p.S) {
-      og[(i0 + r) * p.o_ss + c] =
-          from_f<T>(Os[r * L::LDO + c] / fmaxf(l_s[r], 1e-30f));
+      og[(i0 + r) * p.o_ss + c] = Os[r * L::LDO + c] / fmaxf(l_s[r], 1e-30f);
     }
   }
   if (tid < BQ && i0 + tid < p.S) {
@@ -389,37 +386,16 @@ __device__ __forceinline__ void emit_tile(const float* Os, const float* m_s,
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void scores(const T* Qs, const T* Ks, float* Ss,
-                                       int tid) {
-  if constexpr (Layout<T, D>::kTensorCore) {
-    scores_tc<D>(Qs, Ks, Ss, tid);
-  } else {
-    scores_scalar<D>(Qs, Ks, Ss, tid);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void pv(const T* Ps, const T* Vs, float* Os,
-                                   int tid) {
-  if constexpr (Layout<T, D>::kTensorCore) {
-    pv_tc<D>(Ps, Vs, Os, tid);
-  } else {
-    pv_scalar<D>(Ps, Vs, Os, tid);
-  }
-}
-
-// ---- K1: one kv tile a step -------------------------------------------------
-
-template <typename T, int D>
+// K1, fp32: one kv tile a step
+template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
+  float* Qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* Ks = reinterpret_cast<float*>(smem + L::k_off);
+  float* Vs = reinterpret_cast<float*>(smem + L::v_off);
   float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  T* Ps = reinterpret_cast<T*>(smem + L::p_off);
+  float* Ps = reinterpret_cast<float*>(smem + L::p_off);
   float* Os = reinterpret_cast<float*>(smem + L::o_off);
   float* m_s = reinterpret_cast<float*>(smem + L::m_off);
   float* l_s = reinterpret_cast<float*>(smem + L::l_off);
@@ -429,158 +405,84 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const bool vec = p.vec != 0;
 
-  init_tile<T, D, NTHREADS>(Qs, Os, m_s, l_s, qg, i0, p, tid);
+  init_tile<D, NTHREADS>(Qs, Os, m_s, l_s, qg, i0, p, tid);
   int j_begin, j_end;
-  kv_range(i0, p, &j_begin, &j_end);
+  kv_range(i0, BQ, p, &j_begin, &j_end);
 
   for (int j = j_begin; j < j_end; ++j) {
     const int j0 = j * BK;
     const int kv_valid = min(BK, p.Skv - j0);
     __syncthreads();  // the previous tile's readers are done with Ks/Vs
-    load_tile<T, D, L::LDT>(Ks, kg + j0 * p.k_ss, p.k_ss, kv_valid, vec,
-                            false, 1.f, tid);
-    load_tile<T, D, L::LDT>(Vs, vg + j0 * p.v_ss, p.v_ss, kv_valid, vec,
-                            false, 1.f, tid);
+    load_tile<D>(Ks, kg + j0 * p.k_ss, p.k_ss, kv_valid, vec, false, 1.f,
+                 tid);
+    load_tile<D>(Vs, vg + j0 * p.v_ss, p.v_ss, kv_valid, vec, false, 1.f,
+                 tid);
     __syncthreads();
-    scores<T, D>(Qs, Ks, Ss, tid);
+    scores_scalar<D>(Qs, Ks, Ss, tid);
     __syncthreads();
-    if (is_edge(i0, j0, p)) {
-      softmax_step<T, D, true>(Ss, Ps, Os, m_s, l_s, i0, j0, p, tid);
+    if (is_edge(i0, BQ, j0, p)) {
+      softmax_step<D, true>(Ss, Ps, Os, m_s, l_s, i0, j0, p, tid);
     } else {
-      softmax_step<T, D, false>(Ss, Ps, Os, m_s, l_s, i0, j0, p, tid);
+      softmax_step<D, false>(Ss, Ps, Os, m_s, l_s, i0, j0, p, tid);
     }
     __syncthreads();
-    pv<T, D>(Ps, Vs, Os, tid);
+    pv_scalar<D>(Ps, Vs, Os, tid);
   }
   __syncthreads();
-  emit_tile<T, D, NTHREADS>(Os, m_s, l_s, i0, h, b, p, tid);
+  emit_tile<D, NTHREADS>(Os, m_s, l_s, i0, h, b, p, tid);
 }
 
-// ---- K4: the pipelined forward ---------------------------------------------
-//
-// Replaces the TPU kernel tpushare/workloads/attention.py:
-// _flash_kernel_pipelined (the same pallas_call as _flash_kernel, selected
-// with TPUSHARE_FLASH_FWD=pipelined). It computes K1's function, and its
-// output and LSE are bitwise equal to K1's: every tile goes through the
-// same device functions above (scores, softmax_step, pv, init_tile,
-// emit_tile) on the same values in the same online-softmax order; only
-// the issue order changes.
-//
-// Design. The TPU kernel runs one extra kv grid step and, in step j,
-// computes block j's scores on the MXU while the VPU consumes block j-1's
-// (mask, softmax, PV) from the other half of a double-buffered score
-// scratch. Here the block is two warp groups of four warps each, on the
-// same (64-row q tile, head, batch) as K1:
-// - the producer group (warps 0-3) computes S_j = Q K_j^T on the tensor
-//   cores into score buffer j & 1;
-// - the consumer group (warps 4-7) masks, exponentiates and accumulates
-//   tile j-1 from the other buffer with V_{j-1}, using tile j-1's own
-//   edge flag, and runs its PV product;
-// - the kv loop runs one extra iteration for the last consume, then both
-//   groups emit.
-// The two halves of an iteration share no data, so the producer's
-// tensor-core product of tile j overlaps the consumer's CUDA-core softmax
-// of tile j-1: the Hopper form of the TPU kernel's MXU/VPU overlap. One
-// block barrier (bar.sync 0, 256 threads) ends each iteration and hands
-// the tiles over; the consumer's softmax -> PV hand-off inside its group
-// is a named barrier (bar.sync 1, 128).
-//
-// Loads. For bf16 with 16-byte aligned rows the producer prefetches
-// K_{j+1} and V_j with cp.async into double K and V buffers while it
-// computes S_j and the consumer works on tile j-1; ragged tiles zero-fill
-// their missing rows through cp.async's source size, as K1 zero-fills
-// them. Shared memory at bf16, D=128: K1's 113 KB plus a second score
-// tile (17 KB) and a second K and V tile (2 x 17 KB), 165 KB of the 227.
-// fp32 does not fit that: K1's fp32 layout is already 169 KB (odd pitch
-// 129 against bank conflicts, which also rules out cp.async's 16-byte
-// rows), and double K/V buffers would need about 252 KB. So fp32 keeps
-// one K and one V buffer, double-buffers only the scores, and all 256
-// threads load K_j and V_{j-1} synchronously at the start of iteration j;
-// bf16 rows that are not 16-byte aligned take the same synchronous path
-// into the double buffers.
-//
-// What bounds it: the same work and bytes as K1. This first version is
-// built from K1's synchronous WMMA products (no wgmma or TMA yet), so it
-// inherits K1's distance from the bound; the overlap can only hide the
-// shorter of the two halves of each iteration.
+// K4, fp32: the block is two groups of four warps on K1's tile. In
+// iteration j the score group computes S_j into score buffer j & 1 while
+// the softmax group masks, exponentiates and accumulates tile j-1 from the
+// other buffer with V_{j-1}; the loop runs one extra iteration for the
+// last consume. All 256 threads load K_j and V_{j-1} at the start of an
+// iteration (K1's fp32 layout is already 169 KB, so K and V are not
+// double-buffered); one block barrier ends each iteration, and the softmax
+// -> PV hand-off inside the softmax group is a named barrier.
 
 constexpr int PIPE_THREADS = 2 * NTHREADS;
 
-template <typename T, int D>
+template <int D>
 struct PipeLayout {
-  using L = Layout<T, D>;
-  static constexpr bool kDoubleKV = L::kTensorCore;
-  static constexpr size_t tile = sizeof(T) * BK * L::LDT;
+  using L = Layout<D>;
+  static constexpr size_t tile = sizeof(float) * BK * L::LDT;
   static constexpr size_t s_tile = sizeof(float) * BQ * L::LDS;
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = align128(q_off + sizeof(T) * BQ * L::LDT);
-  static constexpr size_t v_off = align128(k_off + (kDoubleKV ? 2 : 1) * tile);
-  static constexpr size_t s_off = align128(v_off + (kDoubleKV ? 2 : 1) * tile);
+  static constexpr size_t k_off = align128(q_off + sizeof(float) * BQ * L::LDT);
+  static constexpr size_t v_off = align128(k_off + tile);
+  static constexpr size_t s_off = align128(v_off + tile);
   static constexpr size_t p_off = align128(s_off + 2 * s_tile);
-  static constexpr size_t o_off = align128(p_off + sizeof(T) * BQ * L::LDP);
+  static constexpr size_t o_off = align128(p_off + sizeof(float) * BQ * L::LDP);
   static constexpr size_t m_off = align128(o_off + sizeof(float) * BQ * L::LDO);
   static constexpr size_t l_off = align128(m_off + sizeof(float) * BQ);
   static constexpr size_t bytes = align128(l_off + sizeof(float) * BQ);
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // source size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// cp.async copy of a 64-row tile of 16-byte aligned rows by one warp
-// group; rows >= rows_valid become zeros, as load_tile makes them
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
-                                                long long row_stride,
-                                                int rows_valid, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;
-  for (int idx = tid; idx < 64 * VPR; idx += NTHREADS) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * VEC;
-    const bool ok = r < rows_valid;
-    cp_async16(dst + r * LD + c, ok ? src + r * row_stride + c : src, ok);
-  }
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(PIPE_THREADS)
     flash_fwd_pipelined_kernel(Params p) {
-  using L = Layout<T, D>;
-  using PL = PipeLayout<T, D>;
+  using L = Layout<D>;
+  using PL = PipeLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + PL::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + PL::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + PL::v_off);
+  float* Qs = reinterpret_cast<float*>(smem + PL::q_off);
+  float* Ks = reinterpret_cast<float*>(smem + PL::k_off);
+  float* Vs = reinterpret_cast<float*>(smem + PL::v_off);
   float* Ss = reinterpret_cast<float*>(smem + PL::s_off);
-  T* Ps = reinterpret_cast<T*>(smem + PL::p_off);
+  float* Ps = reinterpret_cast<float*>(smem + PL::p_off);
   float* Os = reinterpret_cast<float*>(smem + PL::o_off);
   float* m_s = reinterpret_cast<float*>(smem + PL::m_off);
   float* l_s = reinterpret_cast<float*>(smem + PL::l_off);
-  constexpr int KV_TILE = BK * L::LDT;     // elements of one K or V tile
-  constexpr int S_TILE = BQ * L::LDS;      // floats of one score tile
-  constexpr int NBUF = PL::kDoubleKV ? 2 : 1;
+  constexpr int S_TILE = BQ * L::LDS;  // floats of one score tile
 
   const int tid = threadIdx.x;
   const bool producer = tid < NTHREADS;
@@ -589,115 +491,850 @@ __global__ void __launch_bounds__(PIPE_THREADS)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const bool vec = p.vec != 0;
-  const bool async_kv = PL::kDoubleKV && vec;
 
-  init_tile<T, D, PIPE_THREADS>(Qs, Os, m_s, l_s, qg, i0, p, tid);
+  init_tile<D, PIPE_THREADS>(Qs, Os, m_s, l_s, qg, i0, p, tid);
   int j_begin, j_end;
-  kv_range(i0, p, &j_begin, &j_end);
-  auto k_tile = [&](int j) { return Ks + (j % NBUF) * KV_TILE; };
-  auto v_tile = [&](int j) { return Vs + (j % NBUF) * KV_TILE; };
+  kv_range(i0, BQ, p, &j_begin, &j_end);
   auto kv_rows = [&](int j) { return min(BK, p.Skv - j * BK); };
-
-  if (async_kv && producer && j_begin < j_end) {
-    load_tile_async<T, D, L::LDT>(k_tile(j_begin), kg + j_begin * BK * p.k_ss,
-                                  p.k_ss, kv_rows(j_begin), gtid);
-    cp_async_commit();
-    cp_async_wait_all();
-  }
   __syncthreads();
 
   for (int j = j_begin; j <= j_end; ++j) {
-    if (!async_kv) {
-      // K_j for the producer and V_{j-1} for the consumer, by all threads
-      if (j < j_end) {
-        load_tile<T, D, L::LDT, PIPE_THREADS>(
-            k_tile(j), kg + j * BK * p.k_ss, p.k_ss, kv_rows(j), vec, false,
-            1.f, tid);
-      }
-      if (j > j_begin) {
-        load_tile<T, D, L::LDT, PIPE_THREADS>(
-            v_tile(j - 1), vg + (j - 1) * BK * p.v_ss, p.v_ss,
-            kv_rows(j - 1), vec, false, 1.f, tid);
-      }
-      __syncthreads();
+    // K_j for the score group and V_{j-1} for the softmax group
+    if (j < j_end) {
+      load_tile<D, PIPE_THREADS>(Ks, kg + j * BK * p.k_ss, p.k_ss,
+                                 kv_rows(j), vec, false, 1.f, tid);
     }
+    if (j > j_begin) {
+      load_tile<D, PIPE_THREADS>(Vs, vg + (j - 1) * BK * p.v_ss, p.v_ss,
+                                 kv_rows(j - 1), vec, false, 1.f, tid);
+    }
+    __syncthreads();
     if (producer) {
-      if (j < j_end) {
-        if (async_kv) {
-          if (j + 1 < j_end) {
-            load_tile_async<T, D, L::LDT>(k_tile(j + 1),
-                                          kg + (j + 1) * BK * p.k_ss, p.k_ss,
-                                          kv_rows(j + 1), gtid);
-          }
-          load_tile_async<T, D, L::LDT>(v_tile(j), vg + j * BK * p.v_ss,
-                                        p.v_ss, kv_rows(j), gtid);
-          cp_async_commit();
-        }
-        scores<T, D>(Qs, k_tile(j), Ss + (j & 1) * S_TILE, gtid);
-        if (async_kv) cp_async_wait_all();
-      }
+      if (j < j_end) scores_scalar<D>(Qs, Ks, Ss + (j & 1) * S_TILE, gtid);
     } else if (j > j_begin) {
       const int jj = j - 1;
       const int j0 = jj * BK;
       const float* Sj = Ss + (jj & 1) * S_TILE;
-      if (is_edge(i0, j0, p)) {
-        softmax_step<T, D, true>(Sj, Ps, Os, m_s, l_s, i0, j0, p, gtid);
+      if (is_edge(i0, BQ, j0, p)) {
+        softmax_step<D, true>(Sj, Ps, Os, m_s, l_s, i0, j0, p, gtid);
       } else {
-        softmax_step<T, D, false>(Sj, Ps, Os, m_s, l_s, i0, j0, p, gtid);
+        softmax_step<D, false>(Sj, Ps, Os, m_s, l_s, i0, j0, p, gtid);
       }
       named_barrier(1, NTHREADS);  // P and the rescaled O, group-wide
-      pv<T, D>(Ps, v_tile(jj), Os, gtid);
+      pv_scalar<D>(Ps, Vs, Os, gtid);
     }
-    __syncthreads();  // hand S_j, V_j and K_{j+1} over; free the buffers
+    __syncthreads();  // hand S_j over; free K and V
   }
-  emit_tile<T, D, PIPE_THREADS>(Os, m_s, l_s, i0, h, b, p, tid);
+  emit_tile<D, PIPE_THREADS>(Os, m_s, l_s, i0, h, b, p, tid);
 }
 
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  using L = Layout<T, D>;
+// ============================================================================
+// bf16: the Hopper design (TMA producer, wgmma consumers)
+// ============================================================================
+
+namespace tc {
+
+constexpr int BQ = 128;          // query rows per CTA; kv tiles are BK keys
+constexpr int STAGES = 3;        // K/V ring depth
+constexpr int THREADS = 384;     // producer warpgroup + 2 consumer warpgroups
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int CONSUMER_WARPS = 8;
+
+// Shared-memory layout of one CTA at head dim D. A tile of R rows is
+// stored as NCH chunks of R rows x SW bytes, each row swizzled as TMA's
+// SWIZZLE_<SW>B writes it.
+template <int D>
+struct Tile {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle bytes
+  static constexpr int CW = SW / 2;                      // columns a chunk
+  static constexpr int NCH = D / CW;                     // chunks a row
+  // the swizzle XORs byte-address bits [4, 4+log2(SW/16)) with the bits
+  // three above them (CUTLASS's Swizzle<log2(SW/16), 4, 3>)
+  static constexpr uint32_t MASK = SW == 128 ? 0x70 : SW == 64 ? 0x30 : 0x10;
+  // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr uint32_t q_bytes = BQ * D * 2;
+  static constexpr uint32_t kv_bytes = BK * D * 2;
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t k_off = q_off + q_bytes;
+  static constexpr uint32_t v_off = k_off + STAGES * kv_bytes;
+  static constexpr uint32_t bar_off = v_off + STAGES * kv_bytes;
+  // barriers: q_full, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES);
+  static constexpr uint32_t alloc = bytes + 1024;  // room to align the base
+  static_assert(q_bytes % 1024 == 0 && kv_bytes % 1024 == 0,
+                "tiles must keep the 1024-byte swizzle period");
+  static_assert(alloc <= 232448, "layout over 227 KB");
+};
+
+// byte offset of element (r, col) in a swizzled tile of R rows
+template <int D>
+__device__ __forceinline__ uint32_t swizzled(int r, int col, int R) {
+  using T = Tile<D>;
+  const uint32_t a = r * T::SW + (col % T::CW) * 2;
+  return (col / T::CW) * R * T::SW + (a ^ ((a >> 3) & T::MASK));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// ---- mbarriers ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed. A wait that
+// lasts 10 s traps: a lost arrival becomes a launch failure that the
+// caller sees, not a card that hangs.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > 10000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- TMA -----------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a tile at `addr` with head dim D:
+// start address and stride byte offset (16-byte units), swizzle layout.
+// 8-row groups are 8 * SW bytes apart (SBO), along N for K-major Q and K,
+// along K for MN-major V. The leading byte offset (bits 16-29) is left at
+// 1: K-major swizzled operands ignore it, and each V instruction covers
+// one swizzle atom along N. The base offset is 0, since every tile starts
+// on the swizzle period.
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  using T = Tile<D>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * T::SW) >> 4) << 32) | (T::LAYOUT << 62);
+}
+
+// the descriptor increment of k-step kk (columns 16kk..16kk+15) in a tile
+// whose chunks hold chunk_rows rows: within a chunk the step is a 32-byte
+// move of the start address, which the hardware swizzles like the rest
+template <int D>
+__device__ __forceinline__ constexpr uint64_t kstep(int chunk_rows, int kk) {
+  using T = Tile<D>;
+  return ((16 * kk / T::CW) * chunk_rows * T::SW + (16 * kk % T::CW) * 2) >>
+         4;
+}
+
+// V as B of O += P V: [key][d], so N (= d) is contiguous, MN-major.
+// k-step kk covers keys 16kk..16kk+15, two 8-row groups; one instruction
+// covers one chunk of CW columns.
+template <int D>
+__device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kk, int chunk) {
+  using T = Tile<D>;
+  return make_desc<D>(tile + chunk * BK * T::SW + 16 * kk * T::SW);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator registers across an async
+// wgmma (CUTLASS's warpgroup_fence_operand)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S = A B^T (first k-step) and S += A B^T, m64n64k16, A and B K-major
+// from shared memory. The first step's outputs are write-only, so the
+// previous tile's scores are dead before it and need no registers.
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O += P V, m64nNk16 with N = 16, 32 or 64: A (P, bf16) from registers,
+// B (V) MN-major from shared memory (transpose flag set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- producer ------------------------------------------------------------------
+
+// A tile of R rows from global memory with plain loads, for rows TMA
+// cannot read: the layout TMA would write (rows past rows_total zero),
+// then handed to the async proxy. Called by the whole producer warpgroup.
+template <int D>
+__device__ __forceinline__ void load_plain(unsigned char* smem,
+                                           uint32_t tile, const bf16* g,
+                                           long long row_stride, int row0,
+                                           int rows_total, int R, int tid) {
+  for (int idx = tid; idx < R * D; idx += WG) {
+    const int r = idx / D;
+    const int col = idx % D;
+    const bf16 x = row0 + r < rows_total
+                       ? g[static_cast<long long>(row0 + r) * row_stride + col]
+                       : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<bf16*>(smem + tile + swizzled<D>(r, col, R)) = x;
+  }
+  fence_proxy_async();
+}
+
+// Q once, then K_j and V_j of kv tiles [jb, je) into the ring. With TMA
+// one thread issues every load; otherwise the warpgroup loads and each of
+// its threads arrives.
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const Params& p, unsigned char* smem,
+                                        uint32_t base, int i0, int h, int hk,
+                                        int b, int jb, int je, int tid) {
+  using T = Tile<D>;
+  const uint32_t q_full = base + T::bar_off;
+  auto full_k = [&](int s) { return q_full + 8 * (1 + s); };
+  auto full_v = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  auto k_tile = [&](int s) { return T::k_off + s * T::kv_bytes; };
+  auto v_tile = [&](int s) { return T::v_off + s * T::kv_bytes; };
+  if (p.vec) {
+    if (tid != 0) return;
+    mbar_expect_tx(q_full, T::q_bytes);
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) {
+      tma_load_4d(base + T::q_off + c * BQ * T::SW, tq, q_full, c * T::CW,
+                  i0, h, b);
+    }
+    for (int j = jb, t = 0; j < je; ++j, ++t) {
+      const int s = t % STAGES;
+      mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full_k(s), T::kv_bytes);
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c) {
+        tma_load_4d(base + k_tile(s) + c * BK * T::SW, tk, full_k(s),
+                    c * T::CW, j * BK, hk, b);
+      }
+      mbar_expect_tx(full_v(s), T::kv_bytes);
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c) {
+        tma_load_4d(base + v_tile(s) + c * BK * T::SW, tv, full_v(s),
+                    c * T::CW, j * BK, hk, b);
+      }
+    }
+    return;
+  }
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_plain<D>(smem, T::q_off, qg, p.q_ss, i0, p.S, BQ, tid);
+  mbar_arrive(q_full);
+  for (int j = jb, t = 0; j < je; ++j, ++t) {
+    const int s = t % STAGES;
+    mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
+    load_plain<D>(smem, k_tile(s), kg, p.k_ss, j * BK, p.Skv, BK, tid);
+    mbar_arrive(full_k(s));
+    load_plain<D>(smem, v_tile(s), vg, p.v_ss, j * BK, p.Skv, BK, tid);
+    mbar_arrive(full_v(s));
+  }
+}
+
+// ---- consumers -----------------------------------------------------------------
+
+// One consumer warpgroup's state and per-tile steps. Fragment layout of
+// an m64nN accumulator: thread `lane` of warp `warp` holds rows 16*warp +
+// lane/4 (h = 0) and +8 (h = 1) of the warpgroup's 64, and in each n8
+// block i the columns 8i + 2(lane%4) and +1; element e of the array is
+// block e/4, row h = (e/2)%2, column offset e%2.
+template <int D>
+struct Consumer {
+  using T = Tile<D>;
+  static constexpr int NO = T::CW / 2;  // O floats a chunk
+  const Params& p;
+  uint32_t base;  // aligned shared-memory base
+  int w;          // consumer warpgroup: 0 or 1
+  int lane;
+  int i0w;        // the warpgroup's first query row
+  int row0;       // global query row of fragment row h = 0
+  int jb;         // first kv tile of the CTA
+  float o[T::NCH][NO];
+  float m[2], l[2];
+  uint32_t pa[BK / 16][4];  // P in bf16, the A fragments of O += P V
+
+  __device__ uint32_t bar(int i) const { return base + T::bar_off + 8 * i; }
+  __device__ uint32_t full_k(int s) const { return bar(1 + s); }
+  __device__ uint32_t full_v(int s) const { return bar(1 + STAGES + s); }
+  __device__ uint32_t empty(int s) const { return bar(1 + 2 * STAGES + s); }
+
+  // issue S = Q K^T of local tile t into s, once K_t has landed
+  __device__ __forceinline__ void scores(float (&s)[32], int t) {
+    const int st = t % STAGES;
+    mbar_wait(full_k(st), (t / STAGES) & 1);
+    const uint64_t dk = make_desc<D>(base + T::k_off + st * T::kv_bytes);
+    uint64_t dq = make_desc<D>(base + T::q_off + 64 * w * T::SW);
+    // opaque on every tile, so the compiler derives the k-steps from one
+    // register pair here instead of holding all of them across the loop
+    asm volatile("" : "+l"(dq));
+    wgmma_fence();
+    wgmma_ss_n64_first(s, dq, dk);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      wgmma_ss_n64(s, dq + kstep<D>(BQ, kk), dk + kstep<D>(BK, kk));
+    }
+    wgmma_commit();
+    fence_regs(s);
+  }
+
+  // mask and online-softmax update on the score fragment of a tile at
+  // key j0: s becomes p (fp32), m and l move on, and alpha is the rescale
+  // O still owes (rescale())
+  template <bool MASK>
+  __device__ __forceinline__ void softmax(float (&s)[32], int j0,
+                                          float (&alpha)[2]) {
+    constexpr float L2E = 1.4426950408889634f;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      if (MASK) {
+        const int col = j0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        const int row = row0 + 8 * hh;
+        bool vis = col < p.Skv;
+        if (p.causal) vis = vis && col <= row;
+        if (p.window > 0) vis = vis && col >= row - (p.window - 1);
+        if (!vis) s[e] = -INFINITY;
+      }
+      mx[hh] = fmaxf(mx[hh], s[e]);
+    }
+    float neg_shift[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      // rows with no visible key yet keep m = -inf: shift by 0 there,
+      // and the old accumulator (all zeros) is scaled by 0
+      const float shift = m_new == -INFINITY ? 0.f : m_new;
+      alpha[hh] = m[hh] == -INFINITY ? 0.f : ex2((m[hh] - shift) * L2E);
+      neg_shift[hh] = -shift * L2E;
+      m[hh] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      s[e] = ex2(fmaf(s[e], L2E, neg_shift[hh]));  // masked give exactly 0
+      sum[hh] += s[e];
+    }
+    // each thread keeps its own part of the row sums; the four lanes of a
+    // row add theirs in the epilogue
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+  }
+
+  // softmax() of local tile t, with the compares only on edge tiles
+  __device__ __forceinline__ void softmax_tile(float (&s)[32], int t,
+                                               float (&alpha)[2]) {
+    const int j0 = (jb + t) * BK;
+    if (is_edge(i0w, 64, j0, p)) {
+      softmax<true>(s, j0, alpha);
+    } else {
+      softmax<false>(s, j0, alpha);
+    }
+  }
+
+  // P rounded to bf16 into pa, the A fragments of the PV product: the
+  // accumulator layout, 16 columns at a time. The fences here and in
+  // rescale() keep the compiler from sinking these writes past the next
+  // wgmma issue, which would make it serialise the products.
+  __device__ __forceinline__ void pack(const float (&s)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pa[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+      fence_regs(pa[kk]);
+    }
+  }
+
+  __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) {
+#pragma unroll
+      for (int e = 0; e < NO; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+      fence_regs(o[c]);
+    }
+  }
+
+  // issue O += P V of local tile t, P from pa, once V_t has landed
+  __device__ __forceinline__ void issue_pv(int t) {
+    const int st = t % STAGES;
+    mbar_wait(full_v(st), (t / STAGES) & 1);
+    const uint32_t vt = base + T::v_off + st * T::kv_bytes;
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+        wgmma_rs(o[c], pa[kk], v_desc<D>(vt, kk, c));
+    wgmma_commit();
+  }
+
+  // after the PV product of local tile t has completed: pin O and P in
+  // their registers up to here (the product read and wrote them
+  // asynchronously), and release the tile's K/V stage
+  __device__ __forceinline__ void pv_done(int t) {
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    if (lane == 0) mbar_arrive(empty(t % STAGES));
+  }
+
+  // normalise O and store it and the LSE; rows past S are not written
+  __device__ __forceinline__ void emit(int h, int b) {
+    bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      const int row = row0 + 8 * hh;
+      if (row >= p.S) continue;
+      const float denom = fmaxf(l[hh], 1e-30f);
+      bf16* orow = og + row * p.o_ss;
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < T::CW / 8; ++i) {
+          const int e = 4 * i + 2 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(
+              orow + c * T::CW + 8 * i + 2 * (lane & 3)) =
+              __floats2bfloat162_rn(o[c][e] / denom, o[c][e + 1] / denom);
+        }
+      if ((lane & 3) == 0) {
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.S + row] =
+            l[hh] > 0.f ? m[hh] + logf(denom) : -INFINITY;
+      }
+    }
+  }
+};
+
+// A consumer warpgroup's whole life: scale its Q rows, walk the kv tiles
+// (K1: scores, softmax, PV, one after the other; K4: tile t's scores and
+// tile t-1's PV in flight during tile t's softmax), emit.
+template <int D, bool PIPE>
+__device__ __forceinline__ void consume_all(const Params& p,
+                                            unsigned char* smem,
+                                            uint32_t base, int i0, int h,
+                                            int b, int jb, int je, int w,
+                                            int wt) {
+  using T = Tile<D>;
+  const int warp = wt / 32;
+  const int lane = wt % 32;
+  Consumer<D> c{p, base, w, lane, i0 + 64 * w,
+                i0 + 64 * w + 16 * warp + lane / 4, jb};
+#pragma unroll
+  for (int k = 0; k < T::NCH; ++k)
+#pragma unroll
+    for (int e = 0; e < Consumer<D>::NO; ++e) c.o[k][e] = 0.f;
+  c.m[0] = c.m[1] = -INFINITY;
+  c.l[0] = c.l[1] = 0.f;
+
+  // the reference's scale fold, in place on this warpgroup's 64 rows of
+  // Q (the swizzle moves 16-byte units within a row, so the rows stay
+  // contiguous), then handed to the async proxy
+  mbar_wait(base + T::bar_off, 0);
+#pragma unroll
+  for (int k = 0; k < T::NCH; ++k) {
+    unsigned char* rows = smem + T::q_off + k * BQ * T::SW + 64 * w * T::SW;
+    for (int off = wt * 16; off < 64 * T::SW; off += WG * 16) {
+      uint4 raw = *reinterpret_cast<const uint4*>(rows + off);
+      bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        x[e] = __float2bfloat16_rn(__bfloat162float(x[e]) * p.scale);
+      }
+      *reinterpret_cast<uint4*>(rows + off) = raw;
+    }
+  }
+  fence_proxy_async();
+  named_barrier(1 + w, WG);
+
+  const int n = je - jb;
+  float s[32], alpha[2];
+  if (!PIPE) {
+    for (int t = 0; t < n; ++t) {
+      c.scores(s, t);
+      wgmma_wait<0>();
+      fence_regs(s);
+      c.softmax_tile(s, t, alpha);
+      c.pack(s);
+      c.rescale(alpha);
+      c.issue_pv(t);
+      wgmma_wait<0>();
+      c.pv_done(t);
+    }
+  } else if (n > 0) {
+    // Tile t's scores are issued with tile t-1's PV product still to
+    // run; both go in flight and tile t's softmax runs while the PV
+    // product does. P and O's rescale for tile t wait for that product,
+    // so O sees K1's operations in K1's order. No wgmma group is in
+    // flight between two tiles, on every path, so the compiler can track
+    // the groups and keeps them asynchronous.
+    c.scores(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    c.softmax_tile(s, 0, alpha);
+    c.pack(s);
+    c.rescale(alpha);
+    for (int t = 1; t < n; ++t) {
+      c.scores(s, t);
+      c.issue_pv(t - 1);
+      wgmma_wait<1>();  // the scores, issued first
+      fence_regs(s);
+      c.softmax_tile(s, t, alpha);
+      wgmma_wait<0>();
+      c.pv_done(t - 1);
+      c.pack(s);
+      c.rescale(alpha);
+    }
+    c.issue_pv(n - 1);
+    wgmma_wait<0>();
+    c.pv_done(n - 1);
+  }
+  c.emit(h, b);
+}
+
+// K1 (PIPE = false) and K4 (PIPE = true), bf16
+template <int D, bool PIPE>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ Params p) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int tid = threadIdx.x;
+  // the q tile is the grid's slowest axis, the last (longest causal) first
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (p.H / p.Hkv);
+  int jb, je;
+  kv_range(i0, BQ, p, &jb, &je);
+  if (tid == 0) {
+    const uint32_t fill = p.vec ? 1 : WG;  // TMA: one arrival and the bytes
+    const uint32_t bars = base + T::bar_off;
+    mbar_init(bars, fill);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * (1 + s), fill);
+      mbar_init(bars + 8 * (1 + STAGES + s), fill);
+      mbar_init(bars + 8 * (1 + 2 * STAGES + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the warpgroup index, broadcast so the compiler sees it warp-uniform
+  // (otherwise it serialises every wgmma under the branch below)
+  const int role = __shfl_sync(0xffffffffu, tid / WG, 0);
+  // one if/else for the kernel's whole life, so setmaxnreg applies
+  if (role == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    produce<D>(&tq, &tk, &tv, p, smem, base, i0, h, hk, b, jb, je, tid);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consume_all<D, PIPE>(p, smem, base, i0, h, b, jb, je, role - 1,
+                         tid % WG);
+  }
+}
+
+}  // namespace tc
+
+// ============================================================================
+// host: tensor maps, launches, dispatch
+// ============================================================================
+
+constexpr int ERR_UNSUPPORTED = -1;  // a (dtype, head_dim) not built
+constexpr int ERR_TENSOR_MAP = -2;   // the driver refused a tensor map
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over (D, rows, heads, batch) of a bf16 tensor with the
+// caller's element strides; its box is one chunk (CW columns) of
+// box_rows rows, swizzled as the kernel's tiles are.
+template <int D>
+bool encode_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+                int batch, long long s_row, long long s_head,
+                long long s_batch, int box_rows) {
+  using T = tc::Tile<D>;
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const long long elem[3] = {s_row, s_head, s_batch};
+  cuuint64_t strides[3];
+  cuuint64_t below = D * 2;  // bytes spanned by the dimensions below
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of size 1 is never stepped along, whatever its stride
+    strides[i] = dims[i + 1] == 1 ? below : elem[i] * 2;
+    below = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::CW),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool PIPE>
+int launch_tc(Params p, cudaStream_t stream) {
+  using T = tc::Tile<D>;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  if (p.Skv == 0) p.vec = 0;  // no kv tile to load; a map needs rows
+  if (p.vec) {
+    const bool ok =
+        encode_map<D>(&maps[0], p.q, p.S, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
+                      tc::BQ) &&
+        encode_map<D>(&maps[1], p.k, p.Skv, p.Hkv, p.B, p.k_ss, p.k_sh,
+                      p.k_sb, BK) &&
+        encode_map<D>(&maps[2], p.v, p.Skv, p.Hkv, p.B, p.v_ss, p.v_sh,
+                      p.v_sb, BK);
+    if (!ok) return ERR_TENSOR_MAP;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::bytes));
+      tc::flash_fwd_tc_kernel<D, PIPE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::alloc));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.S + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, L::bytes, stream>>>(p);
+  dim3 grid(p.H, p.B, (p.S + tc::BQ - 1) / tc::BQ);
+  tc::flash_fwd_tc_kernel<D, PIPE>
+      <<<grid, tc::THREADS, T::alloc, stream>>>(maps[0], maps[1], maps[2], p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_pipelined(const Params& p, cudaStream_t stream) {
-  using PL = PipeLayout<T, D>;
+template <int D>
+int launch_scalar(const Params& p, cudaStream_t stream) {
+  using L = Layout<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.S + BQ - 1) / BQ, p.H, p.B);
+  flash_fwd_kernel<D><<<grid, NTHREADS, L::bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_scalar_pipelined(const Params& p, cudaStream_t stream) {
+  using PL = PipeLayout<D>;
   static_assert(PL::bytes <= 232448, "pipelined layout over 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_pipelined_kernel<T, D>,
+      flash_fwd_pipelined_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(PL::bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.S + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_pipelined_kernel<T, D>
+  flash_fwd_pipelined_kernel<D>
       <<<grid, PIPE_THREADS, PL::bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int head_dim, bool pipelined, const Params& p,
-               cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return pipelined ? launch_pipelined<T, 16>(p, stream)
-                              : launch<T, 16>(p, stream);
-    case 32: return pipelined ? launch_pipelined<T, 32>(p, stream)
-                              : launch<T, 32>(p, stream);
-    case 64: return pipelined ? launch_pipelined<T, 64>(p, stream)
-                              : launch<T, 64>(p, stream);
-    case 128: return pipelined ? launch_pipelined<T, 128>(p, stream)
-                               : launch<T, 128>(p, stream);
-    default: return -1;
+// the design by dtype: 1 = bf16 (Hopper), 0 = fp32 (scalar)
+template <int D>
+int launch_d(bool pipelined, int dtype, const Params& p,
+             cudaStream_t stream) {
+  if (dtype == 1) {
+    return pipelined ? launch_tc<D, true>(p, stream)
+                     : launch_tc<D, false>(p, stream);
   }
+  if (dtype == 0) {
+    return pipelined ? launch_scalar_pipelined<D>(p, stream)
+                     : launch_scalar<D>(p, stream);
+  }
+  return ERR_UNSUPPORTED;
 }
 
 int flash_fwd_entry(bool pipelined, int device, int dtype, int head_dim,
@@ -715,9 +1352,13 @@ int flash_fwd_entry(bool pipelined, int device, int dtype, int head_dim,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,   v_ss,  o_sb,
            o_sh, o_ss, causal, window, scale, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(head_dim, pipelined, p, s);
-  if (dtype == 1) return dispatch_d<bf16>(head_dim, pipelined, p, s);
-  return -1;
+  switch (head_dim) {
+    case 16: return launch_d<16>(pipelined, dtype, p, s);
+    case 32: return launch_d<32>(pipelined, dtype, p, s);
+    case 64: return launch_d<64>(pipelined, dtype, p, s);
+    case 128: return launch_d<128>(pipelined, dtype, p, s);
+    default: return ERR_UNSUPPORTED;
+  }
 }
 
 }  // namespace
@@ -725,8 +1366,10 @@ int flash_fwd_entry(bool pipelined, int device, int dtype, int head_dim,
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16. Strides are in elements; the last dimension
-// of q, k, v and o must be contiguous. Returns 0, a cudaError_t value, or
-// -1 for a (dtype, head_dim) pair this library was not built for.
+// of q, k, v and o must be contiguous; vec = 1 when q, k and v are
+// TMA-able (kernels/flash.py:tma_eligible). Returns 0, a cudaError_t
+// value, -1 for a (dtype, head_dim) pair this library was not built for,
+// or -2 when the driver refused a tensor map.
 int tpushare_flash_fwd(int device, int dtype, int head_dim, const void* q,
                        const void* k, const void* v, void* o, float* lse,
                        int B, int H, int Hkv, int S, int Skv,

@@ -12,8 +12,11 @@ bitwise the same results, so its plain version is K1's.
 
 The kernel takes the strides of its inputs, so the ``[B, S, H, D] ->
 [B, H, S, D]`` transposed views the model passes are read in place; only
-the last dimension must be contiguous. The outputs are new contiguous
-tensors.
+the last dimension must be contiguous. bf16 inputs go to the Hopper
+design (TMA loads, wgmma products), which reads q, k and v through TMA
+when :func:`tma_eligible` holds for all three and with plain loads in the
+same kernel otherwise; fp32 inputs go to the scalar kernels. The outputs
+are new contiguous tensors.
 
 ``LAUNCHES`` counts K1's launches and ``LAUNCHES_PIPELINED`` K4's (never
 plain-version calls), so a run can show which forward its path went
@@ -88,6 +91,26 @@ def _check(q, k, v):
                              f"got strides {t.stride()}")
 
 
+def tma_eligible(t: torch.Tensor) -> bool:
+    """Whether the Tensor Memory Accelerator can read ``t`` ([B, H, S,
+    D], last dimension contiguous) in place: its first element is 16-byte
+    aligned, and every other dimension of size above 1 steps by a positive
+    multiple of 16 bytes below 2**40 (a dimension of size 1 is never
+    stepped along). The model's transposed ``[B, S, H, D]`` views qualify;
+    a view one element into a wider row does not, and the kernels' producer
+    then loads it with plain loads instead."""
+    if t.data_ptr() % 16:
+        return False
+    item = t.element_size()
+    return all(size == 1 or (0 < stride * item < 2 ** 40
+                             and stride * item % 16 == 0)
+               for size, stride in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+_ERRORS = {-1: "unsupported dtype or head_dim",
+           -2: "the driver refused a TMA tensor map"}
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, window: int | None = None,
               pipelined: bool = False):
@@ -111,9 +134,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if S == 0:
         return out, lse
-    vec = all(t.data_ptr() % 16 == 0
-              and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
-              for t in (q, k, v))
+    vec = all(tma_eligible(t) for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.device.index or 0, _DTYPE_CODES[q.dtype], D,
              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -127,7 +148,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = build.load(_LIB_NAME).tpushare_cuda_error_string(err)
         name = "flash_fwd_pipelined" if pipelined else "flash_fwd"
         raise RuntimeError(f"{name} launch failed ({err}): "
-                           f"{msg.decode() if err > 0 else 'unsupported'}")
+                           f"{msg.decode() if err > 0 else _ERRORS.get(err, 'unknown')}")
     if pipelined:
         LAUNCHES_PIPELINED += 1
     else:
