@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                     # every phase, as a check
     python3 chip_smoke.py --out results.json  # also write every number
+    python3 chip_smoke.py --compare build/parent  # parent against change
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -10,13 +11,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    -- the hand-written kernels, built from ``tpushare_torch/csrc``
                (one ``nvcc`` per source, all started together), with
                ptxas's registers, stack, spills and wgmma serialisation
-               notes per kernel; a spill in a bf16 forward kernel fails.
+               notes per kernel; a spill in a bf16 kernel fails, and so
+               does a wgmma serialisation note in a bf16 backward one.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving and training paths give it, with
-               times, the ratio to SDPA and the share of the bound; a
-               one-CTA probe of the forward kernels' kv tile step; the
-               backward kernels also launch twice for bitwise equal
-               gradients.
+               times, the ratio to SDPA (for the backward pair, the SDPA
+               backward timed in CUDA graphs) and the share of the bound;
+               one-CTA probes of the forward's and the backward's tile
+               step; the backward kernels also launch twice for bitwise
+               equal gradients.
 4. train    -- the trainer (``player --mode train --attn flash``) at
                llama-8b width and depth, three AdamW steps on one batch of
                1024 tokens; the launch counts must show every layer's
@@ -170,12 +173,18 @@ class Smoke:
         log(f"build: all kernels in {wall:.1f} s")
         self.results["build_s"] = wall
         self.results["ptxas"] = reports
-        spills = [r["kernel"] for rs in reports.values() for r in rs
-                  if "flash_fwd_tc_kernel" in r["kernel"]
-                  and (r["spill_stores"] or r["spill_loads"])]
+        hopper = [r for rs in reports.values() for r in rs
+                  if "_tc_kernel" in r["kernel"]]
+        spills = [r["kernel"] for r in hopper
+                  if r["spill_stores"] or r["spill_loads"]]
         if spills:
             raise AssertionError(f"ptxas spills in the bf16 Hopper "
                                  f"kernels: {spills}")
+        serialized = [r["kernel"] for r in hopper
+                      if "bwd" in r["kernel"] and r["serialized"]]
+        if serialized:
+            raise AssertionError(f"ptxas serialised wgmma in the bf16 "
+                                 f"backward kernels: {serialized}")
 
     # -- 3. kernels ------------------------------------------------------------
     def kernels(self):
@@ -267,6 +276,7 @@ class Smoke:
                 tol, row)
         self.results["kernel_shapes"] = rows
         self._tile_step_probe()
+        self._bwd_tile_step_probe()
         self._kernels_bwd()
 
     def _tile_step_probe(self):
@@ -306,6 +316,53 @@ class Smoke:
                 f"{rec['flash_fwd_pipelined']['ms_2n']:.4f} ms = "
                 f"{rec['flash_fwd_pipelined']['step_us']:.3f} us a step")
         self.results["tile_step"] = out
+
+    def _bwd_tile_step_probe(self):
+        """The latency of one backward tile step: each kernel on one CTA
+        (B = H = Hkv = 1, causal off) over n and 2n tiles; the difference
+        over n is one step's time. K2: 128 query rows over n and 2n
+        64-key tiles; K3: 64 keys over n and 2n 64-row q tiles."""
+        import torch
+        from tpushare_torch.kernels import flash, flash_bwd
+        from tpushare_torch.workloads import attention
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(6)
+        n = 16
+
+        def inputs(S, Skv, D):
+            q, do = (torch.randn(1, 1, S, D, generator=gen, device=dev).to(
+                torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(1, 1, Skv, D, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            out, lse = flash.flash_fwd(q, k, v, False)
+            qs, do, lse, delta = attention._bwd_residuals(q, out, lse, do)
+            return qs, k, v, do, lse, delta
+
+        out = []
+        for D in (64, 128):
+            rec = {"D": D, "n_tiles": n}
+            for name, fn, shape in (
+                    ("dq", flash_bwd.flash_bwd_dq,
+                     lambda t: (128, t * 64)),
+                    ("dkdv", flash_bwd.flash_bwd_dkdv,
+                     lambda t: (t * 64, 64))):
+                times = []
+                for tiles in (n, 2 * n):
+                    args = inputs(*shape(tiles), D)
+                    times.append(time_ms(lambda: fn(*args, False), 50))
+                rec[name] = {"ms_n": times[0], "ms_2n": times[1],
+                             "step_us": (times[1] - times[0]) / n * 1e3}
+            out.append(rec)
+            log(f"bwd tile step D={D}: one CTA over {n} and {2 * n} tiles: "
+                f"flash_bwd_dq (128 query rows x 64 keys a step) "
+                f"{rec['dq']['ms_n']:.4f} / {rec['dq']['ms_2n']:.4f} ms = "
+                f"{rec['dq']['step_us']:.3f} us a step; flash_bwd_dkdv (64 "
+                f"keys x 64 query rows a step) {rec['dkdv']['ms_n']:.4f} / "
+                f"{rec['dkdv']['ms_2n']:.4f} ms = "
+                f"{rec['dkdv']['step_us']:.3f} us a step")
+        self.results["bwd_tile_step"] = out
 
     def _kernel_pipelined(self, label, q, k, v, causal, window, out, lse,
                           ref_out, ref_lse, tol, row) -> dict:
@@ -406,11 +463,12 @@ class Smoke:
                         f"{label}: {name} kernel vs plain max|d| {err:.3g} "
                         f"> {rel_tol:.3g} x max|{name}| {scale:.3g}")
 
-            lib_ms = sdpa_backward_ms(q, k, v, do, causal, window)
+            sdpa = sdpa_backward_ms(q, k, v, do, causal, window)
+            lib_ms = sdpa["ms"]
             row = {"shape": label, "B": B, "H": H, "Hkv": Hkv, "S": S,
                    "D": D, "dtype": str(dt), "causal": causal,
                    "window": window, "model_layout": bshd,
-                   "library_ms": lib_ms}
+                   "library_ms": lib_ms, "sdpa": sdpa}
             for key, fn, plain, names in (
                     ("dq", dq_kernel,
                      lambda: attention.flash_bwd_dq_plain(*args, causal,
@@ -427,6 +485,7 @@ class Smoke:
                             "max_abs": max(errs[n][1] for n in names),
                             **bound}
                 r = row[key]
+                r["bound_share"] = r["bound_ms"] / r["ms"]
                 log(f"kernel flash_bwd_{key} [{label}] B={B} H={H} Hkv={Hkv}"
                     f" S={S} D={D} {str(dt)[6:]} causal={causal} "
                     f"window={window}: max|d| {r['max_abs_err']:.3g} of "
@@ -434,9 +493,15 @@ class Smoke:
                     f"({r['call_ms']:.4f} ms a call from Python), plain "
                     f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                     f"by {r['bound_by']} ({r['flops']:.4g} FLOP, "
-                    f"{r['bytes']:.4g} B)")
-            log(f"sdpa backward [{label}]: {lib_ms:.4f} ms (fwd+bwd minus "
-                "fwd); both kernels bitwise equal over two launches")
+                    f"{r['bytes']:.4g} B; share {r['bound_share']:.3f})")
+            row["sdpa_ratio"] = (row["dq"]["ms"] + row["dkdv"]["ms"]) / lib_ms
+            log(f"sdpa backward [{label}]: {lib_ms:.4f} ms on the device "
+                f"(fwd+bwd {sdpa['fwd_bwd_ms']:.4f} minus fwd "
+                f"{sdpa['fwd_ms']:.4f}, CUDA graphs; backend "
+                f"{sdpa['backend']}); dq+dkdv "
+                f"{row['dq']['ms'] + row['dkdv']['ms']:.4f} ms, ratio "
+                f"{row['sdpa_ratio']:.2f}; both kernels bitwise equal over "
+                "two launches")
             rows.append(row)
         self.results["bwd_kernel_shapes"] = rows
 
@@ -868,7 +933,8 @@ class Smoke:
         serving prefill bucket, launches from the serving path (and from
         the training path beside them). K2 and K3: times at the training
         shape, launches from the training path; ``library_ms`` is the
-        whole SDPA backward, a yardstick for the pair. Errors are the
+        whole SDPA backward (device-timed), a yardstick for the pair, so
+        their ``sdpa_ratio`` is the pair's sum over it. Errors are the
         worst over the bf16 shapes."""
         rows = self.results["kernel_shapes"]
         head = next(r for r in rows if r["shape"] == "llama-8b prefill S=512")
@@ -906,7 +972,9 @@ class Smoke:
                 "max_abs_err": max(r[key]["max_abs_err"] for r in path),
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": head["library_ms"], "shape": head["shape"]})
+                "library_ms": head["library_ms"], "shape": head["shape"],
+                "sdpa_ratio": head["sdpa_ratio"],
+                "bound_share": k["bound_share"]})
         # K4: times at the ViT-B/16 shape, launches from the vit path (its
         # train run; the resumed and forward runs beside them); its plain
         # version and the SDPA call are K1's, timed on the same inputs
@@ -1054,11 +1122,13 @@ def flash_bwd_bound(kernel, B, H, Hkv, S, D, dtype, causal, window) -> dict:
     return roofline(flops, item * tensors + 2 * 4 * B * H * S, dtype)
 
 
-def sdpa_backward_ms(q, k, v, do, causal, window) -> float:
+def sdpa_backward_ms(q, k, v, do, causal, window) -> dict:
     """The backward of ``F.scaled_dot_product_attention(...,
-    enable_gqa=True)`` on the same inputs: CUDA-event time of its forward
-    and backward minus that of its forward alone. A yardstick that the
-    port never calls."""
+    enable_gqa=True)`` on the same inputs, timed as the kernels are: its
+    forward and backward (``torch.autograd.grad`` on static inputs) and
+    its forward alone, each captured in a CUDA graph (:func:`time_ms`),
+    and the difference. Also the backend that ran, read from the kernel
+    names a profiler sees. A yardstick that the port never calls."""
     import torch
     import torch.nn.functional as F
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1074,9 +1144,33 @@ def sdpa_backward_ms(q, k, v, do, causal, window) -> float:
             enable_gqa=True)
 
     def fwd_bwd():
-        torch.autograd.grad(fwd(), (qg, kg, vg), do)
+        return torch.autograd.grad(fwd(), (qg, kg, vg), do)
 
-    return call_ms(fwd_bwd) - call_ms(fwd)
+    fwd_ms = time_ms(fwd, 20)
+    both_ms = time_ms(fwd_bwd, 20)
+    return {"ms": both_ms - fwd_ms, "fwd_ms": fwd_ms, "fwd_bwd_ms": both_ms,
+            **sdpa_backend(fwd_bwd)}
+
+
+def sdpa_backend(fn) -> dict:
+    """Which SDPA backend ``fn`` ran: flash, cudnn, efficient or math, from
+    the names of the CUDA kernels one call launches (torch.profiler), with
+    the names; "not measured" when the profiler sees no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if str(e.device_type).endswith("CUDA")})
+    low = " ".join(names).lower()
+    backend = ("not measured" if not names
+               else "cudnn" if "cudnn" in low
+               else "flash" if "flash" in low
+               else "efficient" if "fmha" in low or "efficient" in low
+               else "math")
+    return {"backend": backend, "kernels": names}
 
 
 def time_ms(fn, calls: int, reps: int = 5) -> float:
@@ -1233,6 +1327,61 @@ def child(argv: list) -> int:
     return 0
 
 
+def compare(parent: Path, out_dir: Path) -> int:
+    """Parent against change on one card: ``parent/chip_smoke.py`` and
+    this tree's, each ``--phases build,kernels`` in its own process, in
+    the order parent, change, change, parent (each tree builds its own
+    kernels into its own ``build/``). Writes each run's log and numbers
+    under ``out_dir`` and prints, per kernel and shape, the four device
+    times and the change over the parent (mean of two against mean of
+    two)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, (label, root) in enumerate((("parent", parent), ("change", ROOT),
+                                       ("change", ROOT),
+                                       ("parent", parent))):
+        out = (out_dir / f"compare{i}_{label}.json").resolve()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(root / "chip_smoke.py"), "--phases",
+             "build,kernels", "--out", str(out)], cwd=root,
+            capture_output=True, text=True, timeout=900)
+        (out_dir / f"compare{i}_{label}.log").write_text(proc.stdout
+                                                         + proc.stderr)
+        log(f"compare: {label} run {i} exited {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+            return 1
+        runs.append((label, json.loads(out.read_text())))
+    table = {}
+    for label, res in runs:
+        for r in res.get("kernel_shapes", []):
+            table.setdefault(("flash_fwd", r["shape"]), []).append(
+                (label, r["ms"]))
+            if "pipelined" in r:
+                table.setdefault(("flash_fwd_pipelined", r["shape"]),
+                                 []).append((label, r["pipelined"]["ms"]))
+        for r in res.get("bwd_kernel_shapes", []):
+            for key in ("dq", "dkdv"):
+                table.setdefault((f"flash_bwd_{key}", r["shape"]),
+                                 []).append((label, r[key]["ms"]))
+    rows = []
+    for (kernel, shape), times in table.items():
+        par = [t for lab, t in times if lab == "parent"]
+        chg = [t for lab, t in times if lab == "change"]
+        if len(par) != 2 or len(chg) != 2:
+            continue
+        speedup = statistics.mean(par) / statistics.mean(chg)
+        rows.append({"kernel": kernel, "shape": shape, "parent_ms": par,
+                     "change_ms": chg, "speedup": speedup})
+        log(f"compare {kernel} [{shape}]: parent {par[0]:.4f} / "
+            f"{par[1]:.4f} ms, change {chg[0]:.4f} / {chg[1]:.4f} ms: "
+            f"{speedup:.2f}x")
+    (out_dir / "compare.json").write_text(json.dumps(rows, indent=1))
+    return 0
+
+
 PHASES = ("card", "build", "kernels", "train", "serve", "entry", "vit")
 
 
@@ -1242,6 +1391,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (a partial run prints no final result)")
+    ap.add_argument("--compare", metavar="PARENT",
+                    help="run PARENT/chip_smoke.py (a checkout of the "
+                    "parent commit) and this tree's, build and kernels "
+                    "phases, parent, change, change, parent, and print "
+                    "the times side by side (writes under "
+                    "build/compare)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -1260,6 +1415,9 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
         return 2
+    if args.compare:
+        return compare(Path(args.compare).resolve(),
+                       ROOT / "build" / "compare")
 
     smoke = Smoke()
     ok = True

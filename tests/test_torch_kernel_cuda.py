@@ -237,3 +237,103 @@ def test_pipelined_reads_views_off_16_byte_alignment(cuda, dtype):
         got = flash.flash_fwd(q, k, v, True, pipelined=True)
         want = flash.flash_fwd(q, k, v, True)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the bf16 Hopper backward kernels' edges: dq CTAs of 128 query rows in
+# two 64-row warpgroups, dk/dv CTAs of 64 keys walking 64-row q tiles and
+# the GQA group, TMA boxes past S and Skv; a window of 200 across tiles;
+# GQA group 8; every head dim (each its own swizzle); the ViT-B/16 grid
+BWD_EDGE_CASES = ([(1, 8, 2, S, 128, bf16, causal, None)
+                   for S in (1, 63, 65, 127, 129, 257)
+                   for causal in (True, False)]
+                  + [(1, 4, 2, 512, 64, bf16, True, 200),
+                     (1, 32, 4, 256, 128, bf16, True, None)]
+                  + [(2, 4, 2, 200, D, bf16, True, None)
+                     for D in (16, 32, 64, 128)]
+                  + [(16, 12, 12, 197, 64, bf16, False, None)])
+BWD_EDGE_IDS = [f"B{c[0]}H{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}"
+                f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
+                for c in BWD_EDGE_CASES]
+
+
+# beside BWD_REL, an absolute floor: where a row sees a single key (S = 1)
+# dS = P (dP - delta) is exactly 0 in exact arithmetic, and both versions
+# return the fp32 rounding of dP - delta (a few ulps of |dP|, about 10,
+# so a few 1e-6) times a key
+BWD_ABS = 2 ** -16
+
+
+def _check_bwd(args, causal, window, dtype):
+    """Both kernels within BWD_REL (plus BWD_ABS) of their plain versions,
+    and bitwise equal over two launches; returns the kernels'
+    gradients."""
+    got = _bwd(args, causal, window)
+    torch.cuda.synchronize()
+    want = (attention.flash_bwd_dq_plain(*args, causal, window),
+            *attention.flash_bwd_dkdv_plain(*args, causal, window))
+    for a, ref in zip(got, want):
+        assert a.dtype == dtype and a.shape == ref.shape
+        assert torch.isfinite(a).all()
+        tol = BWD_REL[dtype] * ref.float().abs().max().item() + BWD_ABS
+        assert (a.float() - ref.float()).abs().max().item() <= tol
+    for a, again in zip(got, _bwd(args, causal, window)):
+        assert torch.equal(a, again)
+    return got
+
+
+@pytest.mark.parametrize("case", BWD_EDGE_CASES, ids=BWD_EDGE_IDS)
+def test_backward_tile_edges_match_plain(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window)
+    _check_bwd(args, causal, window, dtype)
+
+
+@pytest.mark.parametrize("layout", ["off-alignment", "bshd",
+                                    "expanded-dO"])
+def test_backward_reads_views_as_contiguous(cuda, layout):
+    # rows off 16-byte alignment and a stride-0 dO take the plain loads,
+    # the model's transposed views TMA over their strides: all bitwise the
+    # gradients of contiguous copies, and within BWD_REL of plain
+    B, H, Hkv, S, D, causal = 2, 8, 2, 150, 64, True
+    args = list(_bwd_inputs(cuda, B, H, Hkv, S, D, bf16, causal, None))
+    if layout == "off-alignment":
+        for i in range(4):
+            wide = torch.zeros(*args[i].shape[:3], D + 1, dtype=bf16,
+                               device=cuda)
+            wide[..., 1:] = args[i]
+            args[i] = wide[..., 1:]
+        assert args[0].data_ptr() % 16
+    elif layout == "bshd":
+        args[:4] = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                    for t in args[:4]]
+        assert not args[0].is_contiguous()
+    else:
+        args[3] = args[3][:, :1].expand(B, H, S, D)
+        assert args[3].stride(1) == 0
+    got = _check_bwd(tuple(args), causal, None, bf16)
+    dense = [t.contiguous() for t in args]
+    for a, b in zip(got, _bwd(dense, causal, None)):
+        assert torch.equal(a, b)
+
+
+# the dk/dv kernel splits a GQA group of 2, 4 or 8 over a cluster of that
+# many CTAs, which sum their partials in a fixed order; other groups (1,
+# 3, 16) stay in one CTA
+GQA_CASES = [(1, 8, 8, 200, 128, bf16, True, None),
+             (1, 8, 4, 200, 128, bf16, True, None),
+             (1, 8, 2, 200, 128, bf16, True, None),
+             (1, 8, 1, 200, 128, bf16, True, None),
+             (2, 8, 2, 320, 64, bf16, True, 100),
+             (1, 16, 2, 129, 32, bf16, False, None),
+             (1, 6, 2, 100, 64, bf16, True, None),
+             (1, 32, 2, 130, 64, bf16, True, None)]
+GQA_IDS = [f"G{c[1] // c[2]}-B{c[0]}S{c[3]}D{c[4]}"
+           f"{'-causal' if c[6] else ''}{f'-w{c[7]}' if c[7] else ''}"
+           for c in GQA_CASES]
+
+
+@pytest.mark.parametrize("case", GQA_CASES, ids=GQA_IDS)
+def test_backward_gqa_groups_match_plain(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window)
+    _check_bwd(args, causal, window, dtype)

@@ -13,9 +13,12 @@ D]``; ``lse`` (-inf clamped to +1e30) and ``delta`` ``[B, H, S]`` fp32.
 On CPU tensors they run the plain blockwise versions
 (``flash_bwd_dq_plain`` and ``flash_bwd_dkdv_plain`` in
 :mod:`tpushare_torch.workloads.attention`); on CUDA tensors they launch
-the kernel or raise. There is no fallback from one to the other. The
-kernels take strides, so the transposed views the model's gradients
-arrive as are read in place; only the last dimension must be contiguous.
+the kernel or raise. There is no fallback from one to the other: a
+kernel that fails to build, to encode a tensor map or to launch raises.
+bf16 goes to the Hopper design (TMA loads, wgmma products), fp32 to the
+scalar kernels. The kernels take strides, so the transposed views the
+model's gradients arrive as are read in place; only the last dimension
+must be contiguous.
 
 ``LAUNCHES_DQ`` and ``LAUNCHES_DKDV`` count kernel launches (never
 plain-version calls), so a run can show that its path went through them.
@@ -27,11 +30,13 @@ import ctypes
 
 import torch
 
-from tpushare_torch.kernels.flash import _DTYPE_CODES, _check
+from tpushare_torch.kernels.flash import (_DTYPE_CODES, _ERRORS, _check,
+                                          tma_eligible)
 
 LAUNCHES_DQ = 0
 LAUNCHES_DKDV = 0
 _LIB_NAME = "flash_bwd"
+_NAMES = ("flash_bwd_dq", "flash_bwd_dkdv")
 _fn = None
 
 
@@ -72,30 +77,45 @@ def _check_bwd(qs, k, v, do, lse, delta):
                              f"contiguous fp32 {tuple(qs.shape[:3])}")
 
 
-def _launch(kernel: int, qs, k, v, do, lse, delta, out0, out1, causal,
-            window):
-    fn = _kernel()
+def _launch_args(kernel: int, qs, k, v, do, lse, delta, out0, out1,
+                 causal, window) -> tuple:
+    """The arguments of ``tpushare_flash_bwd`` in its order, all but the
+    stream. bf16 goes to the Hopper kernels, which read q, k, v and dO
+    through TMA when :func:`~tpushare_torch.kernels.flash.tma_eligible`
+    holds for all four and with plain loads otherwise (a stride-0 dO, a
+    view off 16-byte alignment); fp32 to the scalar kernels, whose
+    16-byte loads need the same."""
     B, H, S, D = qs.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    vec = all(t.data_ptr() % 16 == 0
-              and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
-              for t in (qs, k, v, do))
-    stream = torch.cuda.current_stream(qs.device).cuda_stream
-    err = fn(qs.device.index or 0, kernel, _DTYPE_CODES[qs.dtype], D,
-             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
-             out1.data_ptr() if out1 is not None else None,
-             B, H, Hkv, S, Skv,
-             *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *do.stride()[:3],
-             int(bool(causal)), int(window or 0), D ** -0.5, int(vec),
-             stream)
-    if err:
+    vec = all(tma_eligible(t) for t in (qs, k, v, do))
+    return (qs.device.index or 0, kernel, _DTYPE_CODES[qs.dtype], D,
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
+            out1.data_ptr() if out1 is not None else None,
+            B, H, Hkv, S, Skv,
+            *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3],
+            int(bool(causal)), int(window or 0), D ** -0.5, int(vec))
+
+
+def _raise_on(err: int, kernel: int) -> None:
+    """Raise, naming the kernel, for a nonzero return of the library."""
+    if not err:
+        return
+    if err > 0:
         from tpushare_torch.kernels import build
-        msg = build.load(_LIB_NAME).tpushare_cuda_error_string(err)
-        name = ("flash_bwd_dq", "flash_bwd_dkdv")[kernel]
-        raise RuntimeError(f"{name} launch failed ({err}): "
-                           f"{msg.decode() if err > 0 else 'unsupported'}")
+        msg = build.load(_LIB_NAME).tpushare_cuda_error_string(err).decode()
+    else:
+        msg = _ERRORS.get(err, "unknown")
+    raise RuntimeError(f"{_NAMES[kernel]} launch failed ({err}): {msg}")
+
+
+def _launch(kernel: int, qs, k, v, do, lse, delta, out0, out1, causal,
+            window):
+    args = _launch_args(kernel, qs, k, v, do, lse, delta, out0, out1, causal,
+                        window)
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    _raise_on(_kernel()(*args, stream), kernel)
 
 
 def flash_bwd_dq(qs, k, v, do, lse, delta, causal: bool,
