@@ -4,6 +4,8 @@
     python3 chip_smoke.py                     # every phase, as a check
     python3 chip_smoke.py --out results.json  # also write every number
     python3 chip_smoke.py --compare build/parent  # parent against change
+    python3 chip_smoke.py --plant kv-scale,rope-offset  # the moe token
+                                              # check against planted faults
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -25,13 +27,30 @@ Phases, each printing its own lines; any failure exits non-zero:
                1024 tokens; the launch counts must show every layer's
                forward and backward went through the kernels; then one
                llama-8b-width layer's flash gradients against einsum's.
-5. serve    -- the int8 serving replica (``llama-8b``, int8 weights, int8
+5. moe      -- the mixture-of-experts family at Mixtral-8x7B widths (the
+               llama-8b geometry with 8 experts of d_ff 14336, top-2
+               routing, depth cut to 4 layers), put into the port's
+               presets for the phase: (a) the trainer (``player --mode
+               train --attn flash``), three AdamW steps on one batch of
+               1024 tokens at capacity factor 2.0, whose all-zero batch
+               drops half the tokens at each k; every layer's forward and
+               backward must go through the kernels and the losses must
+               fall; (b) one layer of those widths, ``moe_ffn`` against
+               the dense ``moe_ffn_reference`` where nothing drops, and
+               ``moe_ffn`` timed at the train run's 1023 tokens against
+               its bound; (c) the int8 replica at capacity factor 4.0
+               (dropless) without ``--engine`` answering HTTP requests,
+               every prefill through the kernel, the served tokens
+               against an uncached einsum forward; (d) ``llama-moe-tiny``
+               trained for two steps (head_dim 16 through K1, K2, K3).
+               Runs before serve, whose engine replica stays registered.
+6. serve    -- the int8 serving replica (``llama-8b``, int8 weights, int8
                KV cache, ``--attn flash``, continuous batching) answering
                HTTP requests; the kernel's launch count must show every
                prefill went through it.
-6. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
+7. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
-7. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
+8. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
                (``player --preset vit-b16 --mode train --batch 32 --attn
                flash``) under the sample's 4096 MiB grant with
                ``TPUSHARE_FLASH_FWD=pipelined``, in child processes (the
@@ -51,6 +70,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -113,15 +133,52 @@ VIT_GRANT_MIB = 4096
 VIT_STEPS = 3
 VIT_ARGV = ["--preset", "vit-b16", "--batch", "32", "--attn", "flash",
             "--device", "cuda"]
-TRAIN_STEPS = 3
 TRAIN_ARGV = ["--preset", "llama-8b", "--mode", "train", "--attn", "flash",
-              "--batch", "1", "--seq", "1024", "--steps", str(TRAIN_STEPS),
+              "--batch", "1", "--seq", "1024", "--steps", "3",
               "--device", "cuda"]
 
 SERVE_ARGV = ["--preset", "llama-8b", "--quant", "int8",
               "--kv-cache-dtype", "int8", "--attn", "flash", "--engine",
               "--engine-slots", "8", "--engine-max-len", "512",
               "--device", "cuda", "--port", "0"]
+
+# the moe phase: Mixtral-8x7B's widths (the llama-8b geometry with
+# moe_experts=8, top-2) at 4 of its 32 layers, under two preset names
+# that exist only while the phase runs
+MOE_LAYERS = 4
+MOE_PRESET = "mixtral-8x7b-l4"
+MOE_DROPLESS_PRESET = "mixtral-8x7b-l4-dropless"   # capacity factor 4.0
+MOE_TRAIN_ARGV = ["--preset", MOE_PRESET, "--mode", "train", "--attn",
+                  "flash", "--batch", "1", "--seq", "1024", "--steps",
+                  "3", "--device", "cuda"]
+MOE_SERVE_ARGV = ["--preset", MOE_DROPLESS_PRESET, "--quant", "int8",
+                  "--kv-cache-dtype", "int8", "--attn", "flash", "--device",
+                  "cuda", "--port", "0"]
+MOE_TINY_ARGV = ["--preset", "llama-moe-tiny", "--mode", "train", "--attn",
+                 "flash", "--batch", "1", "--seq", "128", "--steps",
+                 "2", "--device", "cuda"]
+# the replica's prompt batches (B, S), in the order they are drawn; the
+# kernels phase holds K1 at each, and K1-K3 at llama-moe-tiny's shape
+MOE_SERVE_PREFILLS = ((1, 100), (3, 128), (1, 450))
+MOE_TINY_SHAPE = "llama-moe-tiny train S=127"
+# moe_ffn vs moe_ffn_reference on one Mixtral-width layer in bf16 where
+# nothing drops, relative to the reference's largest output: the packed
+# path rounds the gates to bf16 and sums the two experts' outputs in one
+# fp32 product, the dense one rounds each weighted output to bf16 and adds
+# them in bf16, and the expert GEMMs run at other shapes; each moves an
+# output by a bf16 ulp or two (2**-7 of its magnitude). A wrong routing
+# misses by the output itself.
+MOE_LAYER_REL = 2 ** -5
+# moe serve (moe_token_check): layer 0's router logits (spread about 1)
+# on the served path against the uncached einsum forward: the int8 KV
+# cache and the flash prefill move them by a few 1e-2 (at most 0.037 on
+# an H100). The planted faults of --plant moved them by 0.62 (decode
+# RoPE one position ahead) and 2.15 (KV scales doubled)
+MOE_ROUTER0_TOL = 0.1
+# the share of generated positions whose experts may differ in some layer
+# between the two paths: 3 of 97 on an H100 with the sound path, 65 and
+# 91 of 97 with the two planted faults
+MOE_FLIP_SHARE = 0.1
 
 
 def log(msg: str) -> None:
@@ -194,28 +251,37 @@ class Smoke:
         from tpushare_torch.workloads.attention import flash_attention_plain
 
         bf16, f32 = torch.bfloat16, torch.float32
-        # (label, B, H, Hkv, S, D, dtype, causal, window); the ViT-B/16
-        # row takes q, k and v as the model hands them, [B, S, H, D]
-        # projections transposed to [B, H, S, D]
-        shapes = [("llama-8b prefill S=8", 1, 32, 8, 8, 128, bf16, True, None),
+        # (label, B, H, Hkv, S, D, dtype, causal, window, model layout);
+        # model layout takes q, k and v as the model hands them, [B, S, H,
+        # D] projections transposed to [B, H, S, D]
+        shapes = [("llama-8b prefill S=8", 1, 32, 8, 8, 128, bf16, True, None,
+                   False),
                   ("llama-8b prefill S=128", 1, 32, 8, 128, 128, bf16, True,
-                   None),
+                   None, False),
                   ("llama-8b prefill S=512", 1, 32, 8, 512, 128, bf16, True,
-                   None),
+                   None, False),
                   ("llama-8b train S=1023", 1, 32, 8, 1023, 128, bf16, True,
-                   None),
-                  ("entry llama-mini", 2, 8, 4, 128, 64, bf16, True, None),
-                  ("ragged S=200", 1, 32, 8, 200, 128, bf16, True, None),
-                  ("non-causal", 1, 32, 8, 256, 128, bf16, False, None),
-                  ("window 77", 1, 32, 8, 256, 128, bf16, True, 77),
-                  ("fp32", 1, 8, 2, 256, 64, f32, True, None),
-                  ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None),
-                  (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None)]
+                   None, False),
+                  *[(f"moe serve prefill B={B} S={S}", B, 32, 8, S, 128,
+                     bf16, True, None, True)
+                    for B, S in MOE_SERVE_PREFILLS],
+                  ("entry llama-mini", 2, 8, 4, 128, 64, bf16, True, None,
+                   False),
+                  ("ragged S=200", 1, 32, 8, 200, 128, bf16, True, None,
+                   False),
+                  ("non-causal", 1, 32, 8, 256, 128, bf16, False, None,
+                   False),
+                  ("window 77", 1, 32, 8, 256, 128, bf16, True, 77, False),
+                  ("fp32", 1, 8, 2, 256, 64, f32, True, None, False),
+                  ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
+                   False),
+                  (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
+                  (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
         rows = []
-        for label, B, H, Hkv, S, D, dt, causal, window in shapes:
-            if label == VIT_SHAPE:
+        for label, B, H, Hkv, S, D, dt, causal, window, bshd in shapes:
+            if bshd:
                 q, k, v = (torch.randn(B, S, h, D, generator=gen,
                                        device=dev).to(dt).transpose(1, 2)
                            for h in (H, Hkv, Hkv))
@@ -419,6 +485,7 @@ class Smoke:
                   ("fp32", 1, 8, 2, 256, 64, f32, True, None, False),
                   ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
                    False),
+                  (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -507,17 +574,28 @@ class Smoke:
 
     # -- 4. trainer ----------------------------------------------------------------
     def train(self):
+        record = self._train_run(TRAIN_ARGV, "train: llama-8b")
+        self.train_launches = tuple(record["launches"].values())
+        record["layer_grads"] = self._layer_grads()
+        self.results["train"] = record
+
+    def _train_run(self, argv, label) -> dict:
+        """A trainer's main path on the card: ``player.run(argv)`` with
+        the three launch counts set to 0 just before it and read just
+        after. K1, K2 and K3 must each launch once a layer and step, and
+        the losses must be finite and fall. Logs and returns the losses,
+        step times, launches and peak allocation."""
         import gc
 
         import torch
         from tpushare_torch.kernels import flash, flash_bwd
-        from tpushare_torch.workloads import player
+        from tpushare_torch.workloads import model, player
 
         gc.collect()
         torch.cuda.empty_cache()
         total = torch.cuda.get_device_properties(0).total_memory
         before = torch.cuda.memory_allocated()
-        log(f"train: memory_allocated before {before / 2**30:.2f} GiB of "
+        log(f"{label}: memory_allocated before {before / 2**30:.2f} GiB of "
             f"{total / 2**30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats()
 
@@ -526,53 +604,58 @@ class Smoke:
         flash_bwd.LAUNCHES_DQ = 0
         flash_bwd.LAUNCHES_DKDV = 0
         t0 = time.perf_counter()
-        record = player.run(TRAIN_ARGV)
+        record = player.run(argv, return_state=True)
         main_s = time.perf_counter() - t0
         launches = (flash.LAUNCHES, flash_bwd.LAUNCHES_DQ,
                     flash_bwd.LAUNCHES_DKDV)
         # -- end of the main path --
 
         peak = torch.cuda.max_memory_allocated()
+        n_params = sum(w.numel()
+                       for w in model.param_leaves(record.pop("params")))
+        del record["opt_state"]
         gc.collect()
         torch.cuda.empty_cache()
+
+        def arg(flag):
+            return argv[argv.index(flag) + 1]
+
+        layers = model.PRESETS[arg("--preset")].n_layers
+        steps, batch, seq = (int(arg(f)) for f in ("--steps", "--batch",
+                                                   "--seq"))
         losses = record["losses"]
-        layers = 32
-        if launches != (layers * TRAIN_STEPS,) * 3:
+        if launches != (layers * steps,) * 3:
             raise AssertionError(
-                f"launches flash_fwd/dq/dkdv {launches}, expected "
-                f"{layers} layers x {TRAIN_STEPS} steps each")
-        if len(losses) != TRAIN_STEPS or not all(
-                math.isfinite(x) for x in losses):
-            raise AssertionError(f"train losses {losses}")
+                f"{label}: launches flash_fwd/dq/dkdv {launches}, expected "
+                f"{layers} layers x {steps} steps each")
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: losses {losses}")
         if not losses[-1] < losses[0]:
-            raise AssertionError(f"train loss did not fall: {losses}")
-        seq = int(TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1])
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
         step_s = statistics.median(record["step_s"][1:])
-        tokens_s = (seq - 1) / step_s
-        self.train_launches = launches
-        log(f"train: llama-8b B=1 S={seq - 1} (a ragged length), "
-            f"{TRAIN_STEPS} AdamW steps: losses "
+        tokens_s = batch * (seq - 1) / step_s
+        log(f"{label}: {n_params:.4g} parameters, B={batch} "
+            f"S={seq - 1}, {steps} AdamW steps: losses "
             + ", ".join(f"{x:.6g}" for x in losses)
             + f"; launches flash_fwd {launches[0]}, flash_bwd_dq "
             f"{launches[1]}, flash_bwd_dkdv {launches[2]} = {layers} x "
-            f"{TRAIN_STEPS} each")
-        log("train: step times " + ", ".join(
+            f"{steps} each")
+        log(f"{label}: step times " + ", ".join(
             f"{t * 1e3:.1f}" for t in record["step_s"])
             + f" ms; steady step {step_s * 1e3:.1f} ms = {tokens_s:.1f} "
-            f"tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB, "
-            f"{(total - peak) / 2**30:.2f} GiB of the card left; main path "
-            f"{main_s:.1f} s")
+            f"tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB "
+            f"({peak / 1e9:.2f} GB), {(total - peak) / 2**30:.2f} GiB of the "
+            f"card left; main path {main_s:.1f} s")
         if total - peak < 4 * 2**30:
-            log("train: NOTE under 4 GiB of the card left at the peak")
-        grads = self._layer_grads()
-        self.results["train"] = {
-            "argv": TRAIN_ARGV, "losses": losses, "step_s": record["step_s"],
-            "steady_step_s": step_s, "tokens_per_s": tokens_s,
-            "max_memory_allocated": peak, "total_memory": total,
-            "launches": {"flash_fwd": launches[0],
-                         "flash_bwd_dq": launches[1],
-                         "flash_bwd_dkdv": launches[2]},
-            "main_path_s": main_s, "layer_grads": grads}
+            log(f"{label}: NOTE under 4 GiB of the card left at the peak")
+        return {"argv": argv, "parameters": n_params, "losses": losses,
+                "step_s": record["step_s"], "steady_step_s": step_s,
+                "tokens_per_s": tokens_s, "max_memory_allocated": peak,
+                "total_memory": total,
+                "launches": {"flash_fwd": launches[0],
+                             "flash_bwd_dq": launches[1],
+                             "flash_bwd_dkdv": launches[2]},
+                "main_path_s": main_s}
 
     def _layer_grads(self) -> dict:
         """One llama-8b-width decoder layer: flash and einsum parameter
@@ -613,7 +696,216 @@ class Smoke:
             f"{LAYER_GRAD_REL}) over {', '.join(names)}")
         return worst
 
-    # -- 5. serving replica ------------------------------------------------------
+    # -- 5. mixture of experts -----------------------------------------------
+    def moe(self):
+        with moe_presets() as mixtral:
+            record = {
+                "train": self._train_run(
+                    MOE_TRAIN_ARGV, f"moe train: Mixtral-8x7B widths, "
+                    f"{MOE_LAYERS} layers, capacity factor "
+                    f"{mixtral.moe_capacity_factor}"),
+                "layer": self._moe_layer(mixtral),
+                "serve": self._moe_serve()}
+            failures = record["serve"]["token_check"]["failures"]
+            if failures:
+                raise AssertionError("moe serve: " + "; ".join(failures))
+            record["tiny_train"] = self._train_run(
+                MOE_TINY_ARGV, "moe tiny: llama-moe-tiny (head_dim 16)")
+        self.moe_launches = {
+            "moe_train": record["train"]["launches"],
+            "moe_serve": {"flash_fwd": record["serve"]["launches"]},
+            "moe_tiny_train": record["tiny_train"]["launches"]}
+        self.results["moe"] = record
+
+    def _moe_layer(self, cfg) -> dict:
+        """One Mixtral-width MoE layer in bf16: ``moe_ffn`` against the
+        dense ``moe_ffn_reference`` at T = 512 and capacity factor E/k
+        (nothing drops), ``expert_load``, then ``moe_ffn``'s forward timed
+        at the train run's T = 1023 and capacity factor 2.0."""
+        import dataclasses
+
+        import torch
+        from tpushare_torch.workloads import moe
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        mcfg = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+        params = moe.init_moe_params(mcfg, gen)
+        E, d, f, k = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
+
+        def routed(x, c):
+            """Assignments kept by the routing of ``x`` under ``c``."""
+            logits = x.float() @ params["wg"]
+            return int(moe._route(logits, k, c.capacity(x.shape[0]))[0]
+                       .sum())
+
+        with torch.inference_mode():
+            x = torch.randn(512, d, generator=gen, device=dev).to(mcfg.dtype)
+            y, aux = moe.moe_ffn(params, x, mcfg)
+            ref = moe.moe_ffn_reference(params, x, mcfg)
+            load = moe.expert_load(params, x, mcfg)
+            kept = routed(x, mcfg)
+        torch.cuda.synchronize()
+        if y.shape != x.shape or not torch.isfinite(y).all():
+            raise AssertionError("moe layer: wrong shape or non-finite")
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if kept != 512 * k:
+            raise AssertionError(f"moe layer: {kept} of {512 * k} "
+                                 "assignments kept at capacity factor E/k")
+        if int(load.sum()) != 512:
+            raise AssertionError(f"moe layer: expert_load {load.tolist()} "
+                                 "does not sum to 512")
+        if not err <= MOE_LAYER_REL * scale:
+            raise AssertionError(
+                f"moe layer: moe_ffn vs moe_ffn_reference max|d| {err:.4g}"
+                f" > {MOE_LAYER_REL} x max|y| {scale:.4g}")
+        log(f"moe layer: Mixtral-width layer, T=512, capacity factor "
+            f"{mcfg.capacity_factor} ({kept} of {512 * k} assignments kept):"
+            f" moe_ffn vs moe_ffn_reference max|d| {err:.4g} of max|y| "
+            f"{scale:.4g} (limit {MOE_LAYER_REL} x); aux {aux.item():.4f};"
+            f" expert_load {load.tolist()}")
+
+        tcfg = dataclasses.replace(mcfg, capacity_factor=2.0)
+        T = 1023
+        C = tcfg.capacity(T)
+        with torch.inference_mode():
+            x = torch.randn(T, d, generator=gen, device=dev).to(mcfg.dtype)
+            kept = routed(x, tcfg)
+
+            def packed():
+                return moe.moe_ffn(params, x, tcfg)
+
+            def dense():
+                return moe.moe_ffn_reference(params, x, tcfg)
+
+            ms = time_ms(packed, 5)
+            host_ms = call_ms(packed, 10)
+            plain_ms = time_ms(dense, 3)
+        # the least time: every expert weight read once, x read and y
+        # written once; the operations are the router product and three
+        # expert products over the E*C slots moe_ffn computes (padded
+        # slots included) or over the assignments this input keeps
+        item = 2
+        nbytes = 3 * E * d * f * item + d * E * 4 + 2 * T * d * item
+        router = 2 * T * d * E
+        padded = roofline(router + 3 * 2 * E * C * d * f, nbytes,
+                          torch.bfloat16)
+        needed = roofline(router + 3 * 2 * kept * d * f, nbytes,
+                          torch.bfloat16)
+        log(f"moe layer: moe_ffn forward, T={T}, capacity factor 2.0 "
+            f"(C={C}, E*C={E * C} slots, {kept} of {T * k} assignments "
+            f"kept): {ms:.4f} ms on the device ({host_ms:.4f} ms a call "
+            f"from Python), the dense moe_ffn_reference {plain_ms:.4f} ms; "
+            f"bound {padded['bound_ms']:.4f} ms by {padded['bound_by']} "
+            f"over the slots ({padded['flops']:.4g} FLOP, "
+            f"{nbytes:.4g} B; share {padded['bound_ms'] / ms:.3f}), "
+            f"{needed['bound_ms']:.4f} ms by {needed['bound_by']} over the "
+            f"kept assignments (share {needed['bound_ms'] / ms:.3f})")
+        return {"max_abs_diff": err, "max_abs": scale, "tol_rel":
+                MOE_LAYER_REL, "expert_load": load.tolist(),
+                "timed": {"T": T, "capacity": C, "kept": kept, "ms": ms,
+                          "call_ms": host_ms, "plain_ms": plain_ms,
+                          "bound_slots": padded, "bound_kept": needed}}
+
+    def _moe_serve(self) -> dict:
+        """The Mixtral-width int8 replica without ``--engine``: HTTP
+        requests through ``greedy_decode_kv``, every prefill through K1,
+        the tokens against an uncached einsum forward."""
+        import dataclasses
+        import gc
+
+        import torch
+        from tpushare_torch.kernels import flash
+        from tpushare_torch.workloads import model, serve
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        httpd, front = serve.build_server(MOE_SERVE_ARGV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if front is not None:
+            raise AssertionError("moe serve: an engine without --engine")
+        cfg = dataclasses.replace(model.PRESETS[MOE_DROPLESS_PRESET],
+                                  kv_cache_dtype="int8")
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        rng = torch.Generator().manual_seed(8)
+
+        def prompts(B, S):
+            return torch.randint(0, cfg.vocab, (B, S),
+                                 generator=rng).tolist()
+
+        # the first request meets the cold caches (cuBLAS, the allocator),
+        # so the time to first token is read from the second
+        first, warm, long = (prompts(B, S) for B, S in MOE_SERVE_PREFILLS)
+        requests = [(warm, 16), (first, 1), (first, 32), (long, 16)]
+        answers, times = {}, []
+        try:
+            # -- the main path, with the launch count read around it only --
+            flash.LAUNCHES = 0
+            t_main = time.perf_counter()
+            for i, (batch, steps) in enumerate(requests):
+                t0 = time.perf_counter()
+                rows = post(url, {"tokens": batch, "steps": steps})
+                times.append(time.perf_counter() - t0)
+                check_rows(batch, rows, steps, cfg.vocab)
+                answers[i] = (batch, rows)
+            main_s = time.perf_counter() - t_main
+            launches = flash.LAUNCHES
+            # -- end of the main path --
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        mem = torch.cuda.max_memory_allocated()
+        del httpd
+        gc.collect()
+        torch.cuda.empty_cache()
+        expect = cfg.n_layers * len(requests)
+        if launches != expect:
+            raise AssertionError(f"moe serve: flash_fwd launches {launches}"
+                                 f" != {cfg.n_layers} layers x "
+                                 f"{len(requests)} prefills = {expect}")
+        ttft, decode_rate = times[1], 31 / (times[2] - times[1])
+        # the replica's weights again, from the same seed
+        with torch.inference_mode():
+            params = model.quantize_int8(model.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0)))
+        check = moe_token_check(params, dataclasses.replace(
+            cfg, attn="flash"), answers)
+        del params
+        log(f"moe serve: Mixtral-width int8 replica (capacity factor "
+            f"{cfg.moe_capacity_factor}, no engine) built in {build_s:.1f} "
+            f"s; {len(requests)} requests, flash_fwd launches {launches} = "
+            f"{cfg.n_layers} x {len(requests)} prefills; greedy_decode_kv "
+            f"again gives the served tokens bitwise: "
+            f"{check['bitwise_served']}; layer 0's router logits"
+            f" within {check['router0_max_abs_diff']:.4f} of the uncached "
+            f"einsum forward's (limit {MOE_ROUTER0_TOL}); of "
+            f"{check['positions']} generated positions {check['flipped']} "
+            f"routed otherwise in some layer (limit {MOE_FLIP_SHARE} of "
+            f"them), and where every layer routed alike the served tokens "
+            f"are within {check['worst_gap_alike']:.3f} of its top logit "
+            f"(limit {SERVE_MARGIN}; {check['worst_gap_flipped']:.3f} "
+            "where one flipped)")
+        log(f"moe serve: the first request (3 x 128 + 16 tokens) "
+            f"{times[0]:.3f} s; prompt 100: time to first token "
+            f"{ttft * 1e3:.1f} ms (a request of one token), 32 tokens in "
+            f"{times[2] * 1e3:.1f} ms = {decode_rate:.1f} decode tokens/s; "
+            f"450 + 16 tokens {times[3]:.3f} s; max_memory_allocated "
+            f"{mem / 2**30:.2f} GiB; main path {main_s:.1f} s")
+        return {"argv": MOE_SERVE_ARGV, "requests": len(requests),
+                "launches": launches, "request_s": times,
+                "ttft_ms": ttft * 1e3, "decode_tokens_per_s": decode_rate,
+                "token_check": check, "build_s": build_s,
+                "max_memory_allocated": mem, "main_path_s": main_s}
+
+    # -- 6. serving replica ------------------------------------------------------
     def serve(self):
         import torch
         from tpushare_torch.kernels import flash
@@ -718,7 +1010,7 @@ class Smoke:
             f"tokens/s; 4 co-resident requests (32 tokens each): "
             f"{four_rate:.1f} tokens/s over {together_s:.3f} s, their "
             f"prefills included; ragged batch of 3: {batch_s:.3f} s")
-        margin = self._check_tokens(front, answers)
+        margin = self._check_tokens(front.engine.params, cfg, answers)
         mem = torch.cuda.max_memory_allocated()
         log(f"serve: served tokens within {margin:.3f} of the uncached "
             f"einsum forward's top logit (limit {SERVE_MARGIN}); "
@@ -736,7 +1028,7 @@ class Smoke:
             "token_margin": margin,
             "main_path_s": main_s}
 
-    def _check_tokens(self, front, answers) -> float:
+    def _check_tokens(self, params, cfg, answers) -> float:
         """Each served greedy token against an uncached einsum forward
         over the served sequence: returns the worst gap between the
         reference logit of the served token and the reference maximum."""
@@ -744,14 +1036,13 @@ class Smoke:
 
         import torch
         from tpushare_torch.workloads.model import forward
-        eng = front.engine
-        cfg = dataclasses.replace(eng.cfg, attn="einsum")
+        cfg = dataclasses.replace(cfg, attn="einsum")
         worst = 0.0
         with torch.inference_mode():
             for prompts, rows in answers.values():
                 for p, row in zip(prompts, rows):
                     seq = torch.tensor([row], device="cuda")
-                    logits = forward(eng.params, seq[:, :-1], cfg)[0]
+                    logits = forward(params, seq[:, :-1], cfg)[0]
                     if not torch.isfinite(logits).all():
                         raise AssertionError("non-finite reference logits")
                     gen = seq[0, len(p):]
@@ -765,7 +1056,7 @@ class Smoke:
                                  f"{SERVE_MARGIN})")
         return worst
 
-    # -- 6. entry ----------------------------------------------------------------
+    # -- 7. entry ----------------------------------------------------------------
     def entry(self):
         import torch
         from tpushare_torch.entry import entry
@@ -787,7 +1078,7 @@ class Smoke:
                                  f"{ENTRY_TOL}")
         self.results["entry"] = {"max_abs_diff": diff, "max_abs": scale}
 
-    # -- 7. ViT-B/16 tenant -------------------------------------------------------
+    # -- 8. ViT-B/16 tenant -------------------------------------------------------
     def vit(self):
         import shutil
         import tempfile
@@ -931,8 +1222,9 @@ class Smoke:
     def kernel_line(self) -> list:
         """The ``{"kernels": [...]}`` records. K1: times at the largest
         serving prefill bucket, launches from the serving path (and from
-        the training path beside them). K2 and K3: times at the training
-        shape, launches from the training path; ``library_ms`` is the
+        the training, moe and vit paths beside them). K2 and K3: times at
+        the training shape, launches from the training path (the moe and
+        vit paths beside them); ``library_ms`` is the
         whole SDPA backward (device-timed), a yardstick for the pair, so
         their ``sdpa_ratio`` is the pair's sum over it. Errors are the
         worst over the bf16 shapes."""
@@ -946,7 +1238,8 @@ class Smoke:
                "launches_by_path": {
                    "serve": self.launches, "train": self.train_launches[0],
                    **{k: v["flash_fwd"]
-                      for k, v in self.vit_launches.items()}},
+                      for k, v in (*self.moe_launches.items(),
+                                   *self.vit_launches.items())}},
                "max_abs_err": max(r["max_abs_err_out"] for r in path),
                "ms": head["ms"], "plain_ms": head["plain_ms"],
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -968,7 +1261,9 @@ class Smoke:
                 "launches_by_path": {
                     "train": launches,
                     **{k: v[f"flash_bwd_{key}"]
-                       for k, v in self.vit_launches.items()}},
+                       for k, v in (*self.moe_launches.items(),
+                                    *self.vit_launches.items())
+                       if f"flash_bwd_{key}" in v}},
                 "max_abs_err": max(r[key]["max_abs_err"] for r in path),
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -1268,6 +1563,189 @@ def check_rows(prompts, rows, steps, vocab):
             raise AssertionError("token outside the vocabulary")
 
 
+def moe_token_check(params, cfg, answers) -> dict:
+    """The served MoE tokens against an uncached einsum forward, route by
+    route. Capacity factor E/k drops nothing on either path, but the int8
+    KV cache and the flash prefill move a layer's router logits by a few
+    1e-2, which flips a token's expert where two logits are that
+    close; the flipped token's hidden state then moves by its own size,
+    and through attention the later layers' routing of other tokens too.
+    So each served batch is decoded again here with ``greedy_decode_kv``
+    (it must give the served tokens bitwise), the router logits of every
+    layer and position are read on both paths, and:
+
+    - layer 0's router logits, which see the attention and the cache
+      before any routing, agree within ``MOE_ROUTER0_TOL``;
+    - at each generated position where every layer chose the same
+      experts on both paths, the served token is within ``SERVE_MARGIN``
+      of the reference's top logit;
+    - at most ``MOE_FLIP_SHARE`` of the generated positions chose other
+      experts in some layer.
+
+    The router logits are read by wrapping ``model.moe_ffn`` for the
+    check only, and each forward must show every layer's call. Returns
+    the counts and the rules broken under "failures"; the caller
+    judges."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from tpushare_torch.workloads import model
+
+    ref_cfg = dataclasses.replace(cfg, attn="einsum")
+    dev = params["embed"].device
+    k, L = cfg.moe_top_k, cfg.n_layers
+    router: list = []
+    inner = model.moe_ffn
+
+    def recording(p, x, mcfg):
+        router.append((x.float() @ p["wg"]).reshape(*x.shape[:-1], -1))
+        return inner(p, x, mcfg)
+
+    def read(calls, what):
+        if len(router) != L * calls:
+            raise AssertionError(f"moe token check: {len(router)} router "
+                                 f"readings for {what}, expected {L} layers"
+                                 f" x {calls} forwards")
+        out = list(router)
+        router.clear()
+        return out
+
+    stats = {"positions": 0, "flipped": 0, "worst_gap_alike": 0.0,
+             "worst_gap_flipped": 0.0, "router0_max_abs_diff": 0.0,
+             "bitwise_served": True}
+    with mock.patch.object(model, "moe_ffn", recording), \
+            torch.inference_mode():
+        for prompts, rows in answers.values():
+            S, steps = len(prompts[0]), len(rows[0]) - len(prompts[0])
+            router.clear()
+            again = model.greedy_decode_kv(
+                params, torch.tensor(prompts, device=dev), steps, cfg)
+            stats["bitwise_served"] &= again.tolist() == rows
+            cached = read(steps, "greedy_decode_kv")
+            served = [torch.cat(cached[layer::L], dim=1)
+                      for layer in range(L)]              # [B, S+steps-1, E]
+            for b, row in enumerate(rows):
+                seq = torch.tensor([row], device=dev)
+                logits = model.forward(params, seq[:, :-1], ref_cfg)[0]
+                ref = read(1, "the uncached forward")
+                if not torch.isfinite(logits).all():
+                    raise AssertionError("non-finite reference logits")
+                stats["router0_max_abs_diff"] = max(
+                    stats["router0_max_abs_diff"],
+                    (served[0][b] - ref[0][0]).abs().max().item())
+                for j in range(S - 1, S + steps - 1):
+                    alike = all(
+                        set(served[layer][b, j].topk(k).indices.tolist())
+                        == set(ref[layer][0, j].topk(k).indices.tolist())
+                        for layer in range(L))
+                    gap = (logits[j].max() - logits[j, row[j + 1]]).item()
+                    key = "worst_gap_alike" if alike else "worst_gap_flipped"
+                    stats[key] = max(stats[key], gap)
+                    stats["positions"] += 1
+                    stats["flipped"] += not alike
+    stats["flip_share"] = stats["flipped"] / stats["positions"]
+    failures = []
+    if not stats["bitwise_served"]:
+        failures.append("greedy_decode_kv does not give the served tokens")
+    if stats["router0_max_abs_diff"] > MOE_ROUTER0_TOL:
+        failures.append(f"layer 0 router logits differ by "
+                        f"{stats['router0_max_abs_diff']:.4f} (limit "
+                        f"{MOE_ROUTER0_TOL})")
+    if stats["worst_gap_alike"] > SERVE_MARGIN:
+        failures.append(f"a served token {stats['worst_gap_alike']:.3f} "
+                        f"below the reference top logit where both routed "
+                        f"alike (limit {SERVE_MARGIN})")
+    if stats["flip_share"] > MOE_FLIP_SHARE:
+        failures.append(f"{stats['flipped']} of {stats['positions']} "
+                        f"positions routed otherwise (limit "
+                        f"{MOE_FLIP_SHARE})")
+    stats["failures"] = failures
+    log(f"moe serve: token check: {stats}")
+    return stats
+
+
+@contextlib.contextmanager
+def moe_presets():
+    """The moe phase's two presets in the port's ``model.PRESETS`` while
+    the block runs; yields the Mixtral-width config."""
+    import dataclasses
+    import gc
+
+    import torch
+    from tpushare_torch.workloads import model
+
+    mixtral = dataclasses.replace(model.PRESETS["llama-8b"],
+                                  n_layers=MOE_LAYERS, moe_experts=8)
+    added = {MOE_PRESET: mixtral,
+             MOE_DROPLESS_PRESET: dataclasses.replace(
+                 mixtral, moe_capacity_factor=4.0)}
+    model.PRESETS.update(added)
+    try:
+        yield mixtral
+    finally:
+        for name in added:
+            model.PRESETS.pop(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _plant_kv_scale():
+    """Every int8 KV cache scale written twice too large."""
+    from unittest import mock
+
+    from tpushare_torch.workloads import model
+    inner = model._kv_quant
+
+    def faulty(x):
+        q, scale = inner(x)
+        return q, 2 * scale
+    return mock.patch.object(model, "_kv_quant", faulty)
+
+
+def _plant_rope_offset():
+    """A decode step's RoPE positions one ahead of its cache position."""
+    from unittest import mock
+
+    from tpushare_torch.workloads import model
+    inner = model._qkv
+
+    def faulty(h, lp, positions, cfg):
+        if h.shape[1] == 1:
+            positions = positions + 1
+        return inner(h, lp, positions, cfg)
+    return mock.patch.object(model, "_qkv", faulty)
+
+
+# faults for ``--plant``, each planted into the port's serving path for
+# one run of the moe replica, to read what ``moe_token_check`` sees of it
+PLANTS = {"kv-scale": _plant_kv_scale, "rope-offset": _plant_rope_offset}
+
+
+def planted(faults: list, out: str | None) -> int:
+    """The moe phase's replica and token check once with each fault of
+    ``faults`` planted (:data:`PLANTS`), after the card and build phases.
+    Prints the check's readings for each; exits 0 only if the check
+    refused every fault."""
+    smoke = Smoke()
+    smoke.card()
+    smoke.build()
+    readings, missed = {}, []
+    for name in faults:
+        with moe_presets(), PLANTS[name]():
+            check = smoke._moe_serve()["token_check"]
+        readings[name] = check
+        log(f"plant {name}: {PLANTS[name].__doc__} The token check "
+            + (f"refused it: {'; '.join(check['failures'])}"
+               if check["failures"] else "MISSED it"))
+        if not check["failures"]:
+            missed.append(name)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(readings, indent=1))
+    return 1 if missed else 0
+
+
 def run_child(argv: list, env: dict) -> dict:
     """``player.run(argv)`` in a child process of this script (``--child``)
     with ``env``; returns what the child reports."""
@@ -1382,7 +1860,8 @@ def compare(parent: Path, out_dir: Path) -> int:
     return 0
 
 
-PHASES = ("card", "build", "kernels", "train", "serve", "entry", "vit")
+PHASES = ("card", "build", "kernels", "train", "moe", "serve", "entry",
+          "vit")
 
 
 def main(argv=None) -> int:
@@ -1397,12 +1876,20 @@ def main(argv=None) -> int:
                     "phases, parent, change, change, parent, and print "
                     "the times side by side (writes under "
                     "build/compare)")
+    ap.add_argument("--plant", metavar="FAULTS",
+                    help="comma-separated subset of " + ",".join(PLANTS)
+                    + ": build, then run the moe replica and its token "
+                    "check once with each fault planted, and print what "
+                    "the check reads (exits 0 only if it refuses each)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    faults = [f for f in (args.plant or "").split(",") if f]
+    if set(faults) - set(PLANTS):
+        ap.error(f"unknown faults {sorted(set(faults) - set(PLANTS))}")
     if not (ROOT / "tpushare_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no tpushare_torch package beside {__file__}",
               file=sys.stderr)
@@ -1418,6 +1905,8 @@ def main(argv=None) -> int:
     if args.compare:
         return compare(Path(args.compare).resolve(),
                        ROOT / "build" / "compare")
+    if faults:
+        return planted(faults, args.out)
 
     smoke = Smoke()
     ok = True

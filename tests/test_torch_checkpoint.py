@@ -25,6 +25,8 @@ FAMILIES = {
     "llama": lambda: dataclasses.replace(tm.PRESETS["llama-tiny"],
                                          dtype=torch.float32),
     "vit": lambda: tv.PRESETS_VIT["vit-tiny"],
+    # bf16 experts beside the fp32 router
+    "moe": lambda: tm.PRESETS["llama-moe-tiny"],
 }
 
 
@@ -79,6 +81,25 @@ def test_round_trip_is_bitwise(family, tmp_path):
     r_params, r_opt, r_loss = step(r_params, r_opt, *_batch(cfg))
     assert torch.equal(loss, r_loss)
     _assert_same_state(params, opt, r_params, r_opt)
+
+
+def test_moe_round_trip_keeps_the_router_state_fp32(tmp_path):
+    cfg = FAMILIES["moe"]()
+    params, opt, tx, _ = _trained(cfg, steps=2)
+    ckpt = ck.TrainCheckpointer(str(tmp_path))
+    ckpt.save(2, params, opt, cfg)
+    r_params, r_opt, _ = ckpt.restore(cfg, tx, device="cpu")
+    _assert_same_state(params, opt, r_params, r_opt)
+    for lp in r_params["layers"]:
+        assert lp["wg"].dtype == torch.float32
+        assert lp["w1"].dtype == torch.bfloat16 and lp["w1"].dim() == 3
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert r_opt.state[lp["wg"]][key].dtype == torch.float32
+            assert r_opt.state[lp["w1"]][key].dtype == torch.bfloat16
+    # the geometry guard tells an MoE checkpoint from a dense one
+    with pytest.raises(ValueError, match="moe_experts"):
+        ckpt.restore(dataclasses.replace(cfg, moe_experts=0), tx,
+                     device="cpu")
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -205,8 +205,6 @@ def test_greedy_decode_equals_cached_decode():
 def test_contract_errors():
     jcfg, tcfg = _cfgs(attn="flash")
     _, pt = _params(jcfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tm.init_params(tm.PRESETS["llama-moe-tiny"], torch.Generator())
     x = torch.zeros(1, 4, 64)
     lp = tm._layer(pt, 0)
     with pytest.raises(ValueError, match="default causal mask"):

@@ -5,6 +5,7 @@ thread and driven over HTTP."""
 import dataclasses
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -209,13 +210,56 @@ def test_without_engine_serves_greedy_decode_kv():
     assert len(rows) == 2 and all(len(r) == 7 for r in rows)
 
 
+def test_moe_replica_serves_the_reference_greedy_decode_kv():
+    # the non-engine replica of llama-moe-tiny serving carried-across fp32
+    # weights gives the reference's KV-cached greedy tokens
+    jcfg = dataclasses.replace(jm.PRESETS["llama-moe-tiny"],
+                               dtype=jnp.float32, attn="flash")
+    pj = jm.init_params(jcfg, jax.random.key(0))
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj))
+    fp32 = dataclasses.replace(tm.PRESETS["llama-moe-tiny"],
+                               dtype=torch.float32)
+    prompts = [[5, 9, 200, 31, 8, 4], [100, 2, 77, 31, 8, 19]]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tm.PRESETS, "llama-moe-tiny", fp32)
+        mp.setattr(tm, "init_params", lambda cfg, gen: pt)
+        s = _Server(["--preset", "llama-moe-tiny", "--device", "cpu",
+                     "--port", "0", "--quant", "none", "--attn", "flash"])
+    try:
+        assert s.front is None
+        status, body = s.post({"tokens": prompts, "steps": 7})
+    finally:
+        s.close()
+    assert status == 200
+    ref = jm.greedy_decode_kv(pj, jnp.asarray(prompts, jnp.int32), 7, jcfg)
+    assert json.loads(body)["tokens"] == np.asarray(ref).tolist()
+
+
 @pytest.mark.parametrize("argv,exc,match", [
     (["--tp", "2"], NotImplementedError, "Queue 1 item 12"),
-    (["--preset", "llama-moe-tiny"], NotImplementedError, "MoE"),
+    (["--preset", "llama-moe-tiny", "--engine"], SystemExit,
+     "--engine excludes MoE presets"),
 ])
-def test_unported_options_raise(argv, exc, match):
-    with pytest.raises(exc, match=match):
+def test_unported_options_raise(argv, exc, match, capsys):
+    # a usage error exits with its message on stderr, as in the reference
+    with pytest.raises(exc) as err:
         serve.build_server(["--device", "cpu", "--port", "0"] + argv)
+    assert re.search(match, f"{err.value} {capsys.readouterr().err}")
+
+
+def test_frontend_for_takes_a_pod_dict_or_a_name():
+    front = object()
+    serve.register_frontend("victim", front)
+    try:
+        assert serve.frontend_for({"metadata": {"name": "victim"}}) is front
+        assert serve.frontend_for("victim") is front
+        assert serve.frontend_for({"metadata": {"name": "other"}}) is None
+        assert serve.frontend_for({}) is None
+        assert serve.frontend_for("other") is None
+    finally:
+        serve.unregister_frontend("victim")
+    assert serve.frontend_for("victim") is None
+    serve.unregister_frontend("victim")  # unregistering twice is a no-op
 
 
 def test_command_line_serves_and_stops_on_interrupt():

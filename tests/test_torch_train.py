@@ -168,22 +168,45 @@ def test_player_forward_on_cpu(capsys):
     assert "step 3: " in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("attn", ATTN)
+def test_player_trains_moe_on_cpu(attn, capsys):
+    argv = ["--preset", "llama-moe-tiny", "--mode", "train", "--attn", attn,
+            "--steps", "2", "--seq", "33", "--device", "cpu"]
+    record = player.run(argv, return_state=True)
+    assert capsys.readouterr().out.rstrip().splitlines()[-1].startswith(
+        "step 2: ")
+    losses = record["losses"]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert losses[1] < losses[0]
+    # the router trains in fp32 beside the bf16 experts
+    lp = record["params"]["layers"][0]
+    assert lp["wg"].dtype == torch.float32 and lp["w1"].dtype == torch.bfloat16
+    assert record["opt_state"].state[lp["wg"]]["exp_avg"].dtype == \
+        torch.float32
+
+
+def test_player_moe_forward_on_cpu(capsys):
+    record = player.run(["--preset", "llama-moe-tiny", "--steps", "2",
+                         "--seq", "16", "--attn", "flash", "--device", "cpu"])
+    assert record["mode"] == "forward" and record["steps"] == 2
+    assert "step 2: " in capsys.readouterr().out
+
+
 REFUSED = [
-    # --ckpt-dir and the ViT presets are ported; what they meet of the
-    # sharded slice is still refused, naming its item
+    # --ckpt-dir supports dense presets, as in the reference (MoE state
+    # shards over "ep"); what the ported presets meet of the sharded slice
+    # is still refused, naming its item
     (["--mode", "train", "--ckpt-dir", "ckpt", "--preset",
-      "llama-moe-tiny"], NotImplementedError, "item 13"),
+      "llama-moe-tiny"], SystemExit, "dense presets"),
     (["--sp", "ring"], NotImplementedError, "item 13"),
     (["--multihost"], NotImplementedError, "item 13"),
     (["--preset", "vit-tiny", "--multihost"], NotImplementedError,
      "item 13"),
-    (["--preset", "llama-moe-tiny"], NotImplementedError, "item 13"),
 ]
 
 
 @pytest.mark.parametrize("extra,exc,match", REFUSED,
-                         ids=["ckpt-dir", "sp-ring", "multihost", "vit",
-                              "moe"])
+                         ids=["ckpt-dir", "sp-ring", "multihost", "vit"])
 def test_player_refuses_unported_flags(extra, exc, match):
     with pytest.raises(exc, match=match):
         player.main(["--steps", "1", "--device", "cpu", *extra])

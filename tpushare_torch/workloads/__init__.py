@@ -6,6 +6,8 @@
   kernel on the card, plain blockwise version on the CPU).
 - :mod:`~tpushare_torch.workloads.model` — the llama-style decoder with
   int8 weights and the KV-cached serving forward.
+- :mod:`~tpushare_torch.workloads.moe` — the mixture-of-experts FFN that
+  replaces the decoder's dense one in MoE presets (one device).
 - :mod:`~tpushare_torch.workloads.vit` — the ViT encoder, the second
   workload family.
 - :mod:`~tpushare_torch.workloads.engine` — continuous-batching decode.

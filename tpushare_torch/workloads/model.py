@@ -1,11 +1,12 @@
 """Llama-style decoder-only transformer in PyTorch: the port's model.
 
-Counterpart of ``tpushare/workloads/model.py`` (dense presets, forward,
-training and the KV-cached serving path). Parameters are the reference's
-layout as plain dicts of tensors: ``{"embed", "layers": {name: [L, ...]},
-"final_norm", "lm_head"}``, with int8 weights as ``{"int8": int8 tensor,
-"scale": fp32 tensor}``, so weights carry across from the JAX package
-with :func:`tpushare_torch.workloads.convert.params_from_numpy`.
+Counterpart of ``tpushare/workloads/model.py`` (dense and MoE presets,
+forward, training and the KV-cached serving path). Parameters are the
+reference's layout as plain dicts of tensors: ``{"embed", "layers":
+{name: [L, ...]}, "final_norm", "lm_head"}``, with int8 weights as
+``{"int8": int8 tensor, "scale": fp32 tensor}``, so weights carry across
+from the JAX package with
+:func:`tpushare_torch.workloads.convert.params_from_numpy`.
 
 Training reads the same weights through :func:`train_params`, which
 gives one leaf tensor per layer and weight (a view into the stacked
@@ -32,6 +33,7 @@ import torch
 
 from tpushare_torch.workloads.attention import (
     flash_attention, sliding_window_mask)
+from tpushare_torch.workloads.moe import MoEConfig, init_moe_params, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +54,9 @@ class ModelConfig:
     # KV-cache storage: "model" keeps cfg.dtype, "int8" stores symmetric
     # int8 per (token, kv head) plus an fp32 scale
     kv_cache_dtype: str = "model"
-    # mixture-of-experts FFN: not ported yet (ROADMAP.md Queue 1 item 13)
+    # mixture-of-experts FFN (tpushare_torch/workloads/moe.py): 0 = dense
+    # SwiGLU; >0 replaces every layer's FFN with moe_experts experts of
+    # width d_ff
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -61,6 +65,16 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def moe(self) -> MoEConfig | None:
+        """MoEConfig for the FFN, or None when dense."""
+        if self.moe_experts <= 0:
+            return None
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.moe_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         dtype=self.dtype)
 
     def validate(self) -> "ModelConfig":
         if self.d_model % self.n_heads or self.n_heads % self.n_kv_heads:
@@ -89,22 +103,17 @@ PRESETS = {
 }
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE presets are not ported yet (ROADMAP.md Queue 1 item 13: "
-            "expert parallel)")
-
-
 # -- init ---------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Stacked-layer parameters (leading axis = layer), drawn from
     ``generator`` on its device: N(0, 1/fan_in) in fp32, cast to
-    cfg.dtype, norms at one. Draw order: embed, attention, FFN,
-    lm_head."""
+    cfg.dtype, norms at one. Draw order: embed, wq, wk, wv, wo, the FFN,
+    lm_head. The dense FFN draws w1, w3, w2; an MoE FFN draws each
+    ``[L, ...]`` stack of :func:`~tpushare_torch.workloads.moe.init_moe_params`
+    in its order (wg, left fp32, then w1, w3, w2), giving the reference's
+    ``[L, d, E]`` router and ``[L, E, d, f]`` / ``[L, E, f, d]`` experts."""
     cfg.validate()
-    _dense_only(cfg)
     dev = generator.device
     L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -125,10 +134,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         "wv": w(L, d, nkv * hd, fan_in=d),
         "wo": w(L, nh * hd, d, fan_in=nh * hd),
         "ffn_norm": ones(L, d),
-        "w1": w(L, d, f, fan_in=d),
-        "w3": w(L, d, f, fan_in=d),
-        "w2": w(L, f, d, fan_in=f),
     }
+    if cfg.moe_experts > 0:
+        layers.update(init_moe_params(cfg.moe, generator, lead=(L,)))
+    else:
+        layers.update({"w1": w(L, d, f, fan_in=d),
+                       "w3": w(L, d, f, fan_in=d),
+                       "w2": w(L, f, d, fan_in=f)})
     return {"embed": embed, "layers": layers, "final_norm": ones(d),
             "lm_head": w(d, v, fan_in=d)}
 
@@ -140,7 +152,9 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
 def quantize_int8(params: dict) -> dict:
     """Per-output-channel symmetric int8 for the big matmul weights;
-    norms and the embedding stay in their dtype."""
+    norms and the embedding stay in their dtype, and so do the MoE
+    expert stacks (4-D ``[L, E, ...]``, which the expert products take
+    as they are) and the fp32 router ``wg``."""
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
            "lm_head": _q(params["lm_head"]), "layers": {}}
     for name, w in params["layers"].items():
@@ -227,9 +241,12 @@ def _qkv(h: torch.Tensor, lp: dict, positions: torch.Tensor,
 
 
 def _ffn_block(x: torch.Tensor, lp: dict, cfg: ModelConfig):
-    """Residual + RMSNorm + SwiGLU FFN; returns ``(x, aux)`` with the
-    dense aux term 0."""
+    """Residual + RMSNorm + FFN; returns ``(x, aux)``: the layer's MoE
+    load-balance loss, or 0 for the dense SwiGLU."""
     h = _rmsnorm(x, lp["ffn_norm"])
+    if cfg.moe_experts > 0:
+        y, aux = moe_ffn(lp, h, cfg.moe)
+        return x + y, aux
     gated = torch.nn.functional.silu(_matmul(h, lp["w1"])) \
         * _matmul(h, lp["w3"])
     return (x + _matmul(gated, lp["w2"]),
@@ -287,9 +304,8 @@ def forward(params: dict, tokens: torch.Tensor,
 
 
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens [B, S] -> (logits [B, S, vocab] fp32, aux loss scalar; 0
-    for dense models)."""
-    _dense_only(cfg)
+    """tokens [B, S] -> (logits [B, S, vocab] fp32, aux: the mean of
+    the layers' MoE load-balance losses; 0 for dense models)."""
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -608,7 +624,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
             attn = torch.einsum("bgrtm,bmgd->btgrd", probs, vd)
             attn_flat = attn.reshape(B, T, nh * hd)
         x = x + _matmul(attn_flat, lp["wo"])
-        x, _aux = _ffn_block(x, lp, cfg)
+        x, _aux = _ffn_block(x, lp, cfg)  # aux only matters in training
     if rolling:
         cache["pos"].copy_(new_pos)
     x = _rmsnorm(x, params["final_norm"])

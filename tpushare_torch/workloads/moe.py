@@ -1,0 +1,162 @@
+"""Mixture-of-experts FFN, GShard/Switch style: the port of
+``tpushare/workloads/moe.py`` on one device.
+
+Top-k routing with a static per-expert capacity C: tokens over capacity
+are dropped (their FFN output is zero; the caller's residual carries
+them). Dispatch and combine are ``[T, E, C]`` tensors contracted with
+``torch.einsum``, and each expert's SwiGLU is a batched product over the
+expert axis, as in the reference. The router runs in fp32 (its weight
+``wg`` stays fp32 in a bf16 model; softmax and the slot bookkeeping are
+fp32); the experts compute in the activations' dtype.
+
+The routing contract is the reference's:
+
+- each k picks the first maximum of the remaining probabilities, then
+  removes that expert; the gates are renormalised over the kept experts;
+- slots are taken by k first, then in token order;
+- the Switch aux loss ``E * sum_e f_e * P_e`` reads the k=0 masks (no
+  gradient) and the mean router probabilities (the gradient's path).
+
+:func:`moe_ffn_reference` computes every expert on every token with no
+capacity: the behavioural spec, equal to :func:`moe_ffn` when nothing
+drops. The expert-parallel sharding of the reference (``moe_param_specs``
+over the "ep" mesh axis) waits for the port's sharded slice (ROADMAP.md
+Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int            # per-expert hidden width
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    dtype: torch.dtype = torch.bfloat16
+
+    def capacity(self, n_tokens: int) -> int:
+        """Per-expert token slots for a batch of ``n_tokens``: the
+        reference's float operations in its order, so C agrees at every
+        T."""
+        cap = math.ceil(self.top_k * n_tokens / self.n_experts
+                        * self.capacity_factor)
+        return max(cap, 1)
+
+
+def init_moe_params(cfg: MoEConfig, generator: torch.Generator,
+                    lead: tuple = ()) -> dict:
+    """Router and stacked expert weights (expert axis after ``lead``, the
+    leading axes of a stack such as ``(n_layers,)``), drawn from
+    ``generator`` on its device in the order wg, w1, w3, w2: N(0, 1/fan_in)
+    in fp32, the experts cast to ``cfg.dtype``, the router left fp32."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    dev = generator.device
+
+    def normal(*shape, fan_in):
+        x = torch.randn((*lead, *shape), generator=generator, device=dev,
+                        dtype=torch.float32)
+        return x.mul_(fan_in ** -0.5)
+
+    return {"wg": normal(d, E, fan_in=d),
+            "w1": normal(E, d, f, fan_in=d).to(cfg.dtype),
+            "w3": normal(E, d, f, fan_in=d).to(cfg.dtype),
+            "w2": normal(E, f, d, fan_in=f).to(cfg.dtype)}
+
+
+def _topk_gates(probs: torch.Tensor, top_k: int):
+    """probs [T, E] -> (masks, gates): ``top_k`` fp32 one-hots [T, E] and
+    gates [T], renormalised to sum to 1 over the kept experts."""
+    E = probs.shape[-1]
+    masks, gates = [], []
+    p = probs
+    for _ in range(top_k):
+        onehot = F.one_hot(p.argmax(dim=-1), E).to(torch.float32)
+        gates.append((probs * onehot).sum(dim=-1))
+        masks.append(onehot)
+        p = p * (1.0 - onehot)
+    denom = sum(gates)
+    return masks, [g / denom.clamp_min(1e-9) for g in gates]
+
+
+def _route(logits: torch.Tensor, top_k: int, capacity: int):
+    """fp32 top-k capacity routing: logits [T, E] -> (dispatch [T, E, C]
+    of 0/1, combine [T, E, C] of gates, aux load-balance loss)."""
+    T, E = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    masks, gates = _topk_gates(probs, top_k)
+
+    f_e = masks[0].mean(dim=0)       # fraction routed to e at k=0
+    p_e = probs.mean(dim=0)          # mean router probability of e
+    aux = E * (f_e * p_e).sum()
+
+    f32, dev = torch.float32, logits.device
+    dispatch = torch.zeros((T, E, capacity), dtype=f32, device=dev)
+    combine = torch.zeros((T, E, capacity), dtype=f32, device=dev)
+    prior = torch.zeros((E,), dtype=f32, device=dev)   # slots taken
+    for mask, gate in zip(masks, gates):
+        pos = torch.cumsum(mask, dim=0) - mask + prior          # [T, E]
+        prior = prior + mask.sum(dim=0)
+        pos_tok = (pos * mask).sum(dim=-1).long()               # [T]
+        keep = (pos_tok < capacity).float()
+        # a dropped token's slot is out of range: clamp it into range
+        # (one_hot raises on it) and let keep zero the row
+        slot = F.one_hot(pos_tok.clamp(max=capacity - 1),
+                         capacity).to(torch.float32)            # [T, C]
+        d_k = mask[:, :, None] * slot[:, None, :] * keep[:, None, None]
+        dispatch = dispatch + d_k
+        combine = combine + gate[:, None, None] * d_k
+    return dispatch, combine, aux
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x [..., d_model] -> (y [..., d_model], aux loss scalar fp32).
+    ``params`` holds (at least) "wg", "w1", "w3" and "w2". The leading
+    dims are flattened: capacity is per call over all T tokens. A
+    dropped token's y is zero."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    C = cfg.capacity(xt.shape[0])
+    logits = xt.float() @ params["wg"]
+    dispatch, combine, aux = _route(logits, cfg.top_k, C)
+    # the gates round to the activations' dtype before the products
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xt)
+    h = (F.silu(torch.einsum("ecd,edf->ecf", expert_in, params["w1"]))
+         * torch.einsum("ecd,edf->ecf", expert_in, params["w3"]))
+    expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"])
+    y = torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_out)
+    return y.reshape(*lead, d), aux
+
+
+def moe_ffn_reference(params: dict, x: torch.Tensor,
+                      cfg: MoEConfig) -> torch.Tensor:
+    """Every expert on every token, output the gate-weighted sum over
+    each token's top-k experts, no capacity: equal to :func:`moe_ffn`
+    when nothing drops."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    probs = torch.softmax(xt.float() @ params["wg"], dim=-1)
+    masks, gates = _topk_gates(probs, cfg.top_k)
+    h = (F.silu(torch.einsum("td,edf->etf", xt, params["w1"]))
+         * torch.einsum("td,edf->etf", xt, params["w3"]))
+    all_out = torch.einsum("etf,efd->etd", h, params["w2"])
+    y = torch.zeros_like(xt)
+    for mask, gate in zip(masks, gates):
+        w = (mask * gate[:, None]).to(x.dtype)                  # [T, E]
+        y = y + torch.einsum("te,etd->td", w, all_out)
+    return y.reshape(*lead, d)
+
+
+def expert_load(params: dict, x: torch.Tensor,
+                cfg: MoEConfig) -> torch.Tensor:
+    """Tokens routed to each expert at k=0, int32 [E]."""
+    xt = x.reshape(-1, x.shape[-1])
+    idx = (xt.float() @ params["wg"]).argmax(dim=-1)
+    return torch.bincount(idx, minlength=cfg.n_experts).to(torch.int32)

@@ -17,15 +17,19 @@ batch with labels 0. ``--steps`` is a total (0 runs forever); it prints
 ``step N: x train/s on cuda`` every 50 steps and at the last.
 ``--device`` defaults to ``cuda`` and raises without it.
 
+The MoE presets (``llama-moe-tiny``) train and run forward on one card.
+
 ``--ckpt-dir`` (train mode) resumes from the latest step there and saves
 every ``--ckpt-every`` steps through
 :class:`~tpushare_torch.workloads.checkpoint.TrainCheckpointer`; a
 resumed run finishes what is left of ``--steps`` (resumed at step 2 of
-``--steps 3``, it runs one step).
+``--steps 3``, it runs one step). As in the reference it supports dense
+presets only: with an MoE preset it exits (``SystemExit``), since MoE
+state shards over "ep" (call ``TrainCheckpointer`` directly on one
+process).
 
 Not ported yet, and refused with ``NotImplementedError``: ``--sp ring``
-and ``--multihost`` (ROADMAP.md Queue 1 item 13, the sharded slice) and
-the MoE presets (item 13).
+and ``--multihost`` (ROADMAP.md Queue 1 item 13, the sharded slice).
 """
 
 from __future__ import annotations
@@ -72,10 +76,6 @@ def _family(ap, args):
     families. ``batch_fn(device)`` makes the all-zero batch."""
     from tpushare_torch.workloads import model
     if args.preset in model.PRESETS:
-        if model.PRESETS[args.preset].moe_experts:
-            raise NotImplementedError(
-                f"--preset {args.preset}: MoE presets are not ported yet "
-                "(ROADMAP.md Queue 1 item 13: expert parallel)")
         cfg = dataclasses.replace(model.PRESETS[args.preset],
                                   attn=args.attn).validate()
 
@@ -131,6 +131,10 @@ def run(argv: list[str] | None = None, return_state: bool = False) -> dict:
                  "--sp ring modes do not checkpoint)")
     cfg, init_fn, make_train, fwd_fn, batch_fn = _family(ap, args)
     _refuse_unported(args)
+    if args.ckpt_dir is not None and getattr(cfg, "moe_experts", 0):
+        raise SystemExit(
+            "--ckpt-dir train mode supports dense presets; MoE state shards "
+            "over 'ep' (use TrainCheckpointer directly on one process)")
 
     from tpushare_torch.contract import (
         ENV_HBM_CHIP_TOTAL, ENV_HBM_LIMIT, ENV_VISIBLE_CHIPS)

@@ -10,8 +10,11 @@ on a machine without CUDA raises instead of falling back.
 a smoke script can run ``httpd.serve_forever`` in a thread;
 :func:`main` is the command line.
 
-Not ported yet: tensor parallelism (``--tp`` above 1, ROADMAP.md Queue 1
-item 12) and MoE presets (item 13); both raise NotImplementedError.
+MoE presets serve without ``--engine``, through ``greedy_decode_kv`` on
+one card; ``--engine`` with an MoE preset is a usage error, as in the
+reference (capacity routing couples the slots of a batch). Not ported
+yet: tensor and expert parallelism (``--tp`` above 1, ROADMAP.md Queue 1
+item 12), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
+
+from tpushare_torch.workloads.migrate import _pod_name
 
 
 class _EngineFrontend:
@@ -227,10 +232,17 @@ def register_frontend(name: str, frontend: _EngineFrontend) -> None:
         _FRONTENDS[name] = frontend
 
 
-def frontend_for(name: str) -> _EngineFrontend | None:
-    """The frontend registered under ``name`` (the pod name), or None."""
+def unregister_frontend(name: str) -> None:
     with _FRONTENDS_LOCK:
-        return _FRONTENDS.get(name)
+        _FRONTENDS.pop(name, None)
+
+
+def frontend_for(pod) -> _EngineFrontend | None:
+    """The frontend registered for a pod (its dict, whose
+    ``metadata.name`` names it, or the name itself), or None: a pod with
+    no serve loop just checkpoints."""
+    with _FRONTENDS_LOCK:
+        return _FRONTENDS.get(_pod_name(pod))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -300,6 +312,9 @@ def build_server(argv: list[str] | None = None):
             "Queue 1 item 12)")
     if args.preset not in PRESETS:
         ap.error(f"--preset {args.preset!r}: one of {sorted(PRESETS)}")
+    if args.engine and PRESETS[args.preset].moe_experts:
+        ap.error("--engine excludes MoE presets (capacity routing couples "
+                 "slots)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
