@@ -6,6 +6,8 @@
     python3 chip_smoke.py --compare build/parent  # parent against change
     python3 chip_smoke.py --plant kv-scale,rope-offset  # the moe token
                                               # check against planted faults
+    python3 chip_smoke.py --plant dp-mean,copy-to-bwd  # the shard
+                                              # trainer's check, likewise
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -48,6 +50,23 @@ Phases, each printing its own lines; any failure exits non-zero:
                KV cache, ``--attn flash``, continuous batching) answering
                HTTP requests; the kernel's launch count must show every
                prefill went through it.
+6b. shard   -- data, tensor and expert parallelism, ranks sharing the one
+               card over gloo: (a) ``samples/5-serving.yaml`` as deployed,
+               the llama-8b int8 replica with ``--tp 4`` (four ranks, each
+               under the sample's 8192 MiB grant, in a child process)
+               answering HTTP requests, every prefill through K1 on every
+               rank, each prompt's first-token logits against the tp=1
+               replica of the same seed and the served tokens against its
+               uncached forward; (b) the trainer (``TrainCheckpointer.
+               resume_or_init(mesh=)`` and ``make_train_step``) at
+               llama-8b widths cut to 4 layers, dp=2 x tp=2 over four
+               ranks for three AdamW steps on seeded random tokens with a
+               checkpoint at step 2, then a second run restoring it onto a
+               (1, 4) mesh for step 3, losses and parameters after steps 1
+               and 3 held against the one-process trainer, every layer
+               through K1, K2 and K3; (c) one Mixtral-width MoE layer at
+               ep=2, forward and backward at T=1023, against the
+               one-process ``moe_ffn``.
 7. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
 8. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
@@ -181,6 +200,53 @@ MOE_ROUTER0_TOL = 0.1
 MOE_FLIP_SHARE = 0.1
 
 
+# the shard phase: sample 5's replica (tp over the ranks of its 4-chip
+# grant, here four ranks on one card, each under the sample's grant)
+SHARD_TP = 4
+SHARD_GRANT_MIB = 8192
+SHARD_SERVE_ARGV = ["--preset", "llama-8b", "--quant", "int8",
+                    "--kv-cache-dtype", "int8", "--attn", "flash", "--tp",
+                    str(SHARD_TP), "--device", "cuda", "--port", "0"]
+SHARD_PROMPTS = (5, 100, 240, 450)
+SHARD_STEPS = 16
+# first-token logits of the tp=4 replica against the tp=1 one (same
+# int8 weights, the flash prefill over an int8 cache): the row-parallel
+# products round each rank's bf16 partial sum before the fp32
+# all-reduce where tp=1 rounds the whole sum once, about a bf16 ulp of
+# each layer's output, carried through 32 residual layers; a broken
+# shard or a missing all-reduce misses by the logit spread (about 4)
+SHARD_LOGIT_TOL = 0.25
+# the trainer: llama-8b widths at 4 layers (:func:`shard_config`), on B=2
+# rows of 1024 seeded random tokens, so the two dp ranks take different
+# rows
+SHARD_LAYERS = 4
+SHARD_BATCH, SHARD_SEQ, SHARD_TOKEN_SEED = 2, 1024, 7
+SHARD_LR = 3e-4
+# the parameters of the sharded runs against the one-process trainer's,
+# after step 1 and step 3, this rank's shard of each leaf: AdamW's first
+# step moves a weight by about lr whatever its gradient's size, so where
+# the meshes' reduction orders turn a near-zero gradient's sign, a
+# weight differs by 2 lr (plus a bf16 ulp of |w| < 0.2: 2**-10), by up
+# to 6 lr over three steps. A wrong shard or a restore onto the wrong
+# placements misses by the weights themselves (0.016 to 0.2 here)
+SHARD_STEP_TOL = {1: 2 * SHARD_LR + 2 ** -10, 3: 6 * SHARD_LR + 2 ** -10}
+# the bulk of those differences: mean |d| over each leaf's elements, in
+# units of lr. Only near-zero gradients turn sign in a sound run; a
+# gradient without its dp mean or a tp all-reduce turns a large share
+# (``--plant dp-mean,copy-to-bwd``)
+SHARD_MEAN_TOL = 0.1
+# the losses of steps 1-3: step 1's differs by the logits' rounding,
+# steps 2 and 3 by what the updates above move
+SHARD_LOSS_TOL = 0.05
+# the leaves the ranks hold against the one-process trainer's
+SHARD_REF_LEAVES = ("lm_head", "final_norm", "layers.0.attn_norm",
+                    "layers.0.wq", "layers.0.wk", "layers.0.wv",
+                    "layers.0.wo", "layers.0.w1", "layers.0.w3",
+                    "layers.0.w2", "layers.3.w2")
+SHARD_MOE_T = 1023
+SHARD_TRAIN_SHAPE = "tp=2 train S=1023"
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -276,6 +342,12 @@ class Smoke:
                   ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
                    False),
                   (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
+                  # a rank's heads: the tp=4 replica's prefills, the tp=2
+                  # trainer's layers
+                  *[(f"tp=4 prefill S={S}", 1, 8, 2, S, 128, bf16, True,
+                     None, True) for S in (100, 450)],
+                  (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
+                   True),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -486,6 +558,8 @@ class Smoke:
                   ("D=16 (llama-tiny)", 2, 4, 2, 96, 16, bf16, True, None,
                    False),
                   (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
+                  (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
+                   True),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -1056,6 +1130,244 @@ class Smoke:
                                  f"{SERVE_MARGIN})")
         return worst
 
+    # -- 6b. data, tensor and expert parallelism ------------------------------
+    def shard(self):
+        import torch
+        from tpushare_torch.workloads import parallel
+        log(f"shard: transport for {SHARD_TP} ranks on this card: "
+            f"{parallel.transport('cuda', SHARD_TP)} "
+            f"({torch.cuda.device_count()} card(s) visible)")
+        record = {"transport": parallel.transport("cuda", SHARD_TP),
+                  "serve": self._shard_serve(),
+                  "train": self._shard_train(),
+                  "moe": self._shard_moe()}
+        self.shard_launches = {
+            "shard_serve": {"flash_fwd": record["serve"]["launches"]},
+            "shard_train": record["train"]["launches"],
+            "shard_resume": record["train"]["resume_launches"]}
+        self.results["shard"] = record
+
+    def _shard_serve(self) -> dict:
+        """Sample 5's replica as deployed: ``serve --tp 4`` in a child
+        process (rank 0, which starts ranks 1-3) under the sample's grant;
+        the child drives it over HTTP. Here: its first-token logits
+        against the tp=1 replica of the same seed, and the served tokens
+        against that replica's uncached einsum forward."""
+        import dataclasses
+        import gc
+        import tempfile
+
+        import torch
+        from tpushare_torch.workloads import model
+
+        cfg = dataclasses.replace(model.PRESETS["llama-8b"], attn="flash",
+                                  kv_cache_dtype="int8")
+        rng = torch.Generator().manual_seed(9)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+                   for n in SHARD_PROMPTS]
+        total_mib = torch.cuda.get_device_properties(0).total_memory // 2**20
+        env = dict(os.environ, TPUSHARE_HBM_LIMIT_MIB=str(SHARD_GRANT_MIB),
+                   TPUSHARE_HBM_CHIP_TOTAL_MIB=str(total_mib))
+        (ROOT / "build").mkdir(exist_ok=True)
+        logits_path = Path(tempfile.mkdtemp(prefix="shard-", dir=ROOT /
+                                            "build")) / "logits.pt"
+        # -- the main path: the child resets every rank's launch count
+        # to 0 just before the requests and reads them just after --
+        out = run_child_cmd(["--serve-child", json.dumps(
+            {"argv": SHARD_SERVE_ARGV, "prompts": prompts,
+             "steps": SHARD_STEPS, "vocab": cfg.vocab,
+             "logits": str(logits_path)})], env)
+        # -- end of the main path --
+        got = torch.load(logits_path).cuda()
+        logits_path.unlink()
+        grant = SHARD_GRANT_MIB * 2**20
+        expect = cfg.n_layers * len(prompts)
+        for r, (built, served) in enumerate(zip(out["built_stats"],
+                                                out["stats"])):
+            if served["flash_fwd"] != expect:
+                raise AssertionError(
+                    f"shard serve: rank {r} flash_fwd launches "
+                    f"{served['flash_fwd']} != {cfg.n_layers} layers x "
+                    f"{len(prompts)} prefills")
+            peak = max(built["max_memory_allocated"],
+                       served["max_memory_allocated"])
+            if peak > grant:
+                raise AssertionError(f"shard serve: rank {r} peak {peak} B "
+                                     f"over the {SHARD_GRANT_MIB} MiB grant")
+        # the tp=1 replica of the same seed, here, without a grant
+        with torch.inference_mode():
+            params = model.quantize_int8(model.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0)))
+            want = []
+            for p in prompts:
+                tokens = torch.tensor([p], device="cuda")
+                cache = model.init_kv_cache(cfg, 1, len(p) + 1,
+                                            device="cuda")
+                logits, _ = model.forward_cached(params, tokens, cache, 0,
+                                                 cfg, prefill_from_zero=True)
+                want.append(logits[:, -1])
+            want = torch.cat(want)
+        err = (got - want).abs().max().item()
+        spread = want.abs().max().item()
+        same_first = sum(int(r[0][len(p)] == int(w.argmax()))
+                         for r, p, w in zip(out["rows"], prompts, want))
+        answers = {i: ([p], rows) for i, (p, rows) in
+                   enumerate(zip(prompts, out["rows"]))}
+        margin = self._check_tokens(params, cfg, answers)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not err <= SHARD_LOGIT_TOL:
+            raise AssertionError(f"shard serve: first-token logits tp=4 vs "
+                                 f"tp=1 max|d| {err:.4g} > {SHARD_LOGIT_TOL}")
+        peaks = [max(b["max_memory_allocated"], s["max_memory_allocated"])
+                 for b, s in zip(out["built_stats"], out["stats"])]
+        log(f"shard serve: llama-8b int8 replica --tp {SHARD_TP}, four ranks "
+            f"on this card under {SHARD_GRANT_MIB} MiB each, built in "
+            f"{out['build_s']:.1f} s; {len(prompts)} requests (prompts "
+            f"{', '.join(map(str, SHARD_PROMPTS))}; {SHARD_STEPS} tokens "
+            f"each) in " + ", ".join(f"{t:.3f}" for t in out["request_s"])
+            + " s (time to first token alone: " + ", ".join(
+                f"{t * 1e3:.1f}" for t in out["prefill_s"]) + " ms)"
+            + "; flash_fwd launches per rank "
+            + ", ".join(str(s["flash_fwd"]) for s in out["stats"])
+            + f" = {cfg.n_layers} x {len(prompts)} prefills; peak allocated "
+            "per rank " + ", ".join(f"{p / 2**30:.2f}" for p in peaks)
+            + " GiB")
+        log(f"shard serve: first-token logits tp=4 vs tp=1 max|d| {err:.4g} "
+            f"of max|logit| {spread:.3g} (limit {SHARD_LOGIT_TOL}); first "
+            f"token equal on {same_first} of {len(prompts)}; served tokens "
+            f"within {margin:.3f} of the uncached einsum forward's top logit"
+            f" (limit {SERVE_MARGIN})")
+        return {"argv": SHARD_SERVE_ARGV, "prompts": list(SHARD_PROMPTS),
+                "launches": min(s["flash_fwd"] for s in out["stats"]),
+                "launches_per_rank": [s["flash_fwd"] for s in out["stats"]],
+                "peak_per_rank": peaks, "grant_mib": SHARD_GRANT_MIB,
+                "request_s": out["request_s"], "build_s": out["build_s"],
+                "first_token_logits_max_abs_diff": err,
+                "first_token_equal": same_first, "token_margin": margin,
+                "decode_tokens_per_s_450": (SHARD_STEPS - 1) / max(
+                    out["request_s"][-1] - out["prefill_s"][-1], 1e-9),
+                "transport": out["transport"]}
+
+    def _shard_train(self, plant: str | None = None) -> dict:
+        """The trainer on dp=2 x tp=2, then restored onto (1, 4), against
+        the one-process trainer's losses and its parameters after steps
+        1 and 3. With ``plant`` (:data:`SHARD_PLANTS`) only the first run,
+        with that fault in every rank, and the failures are returned."""
+        import gc
+        import shutil
+        import tempfile
+
+        import torch
+        from tpushare_torch.workloads import parallel
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="shard-train-", dir=ROOT /
+                                     "build"))
+        ref_path = work / "ref.pt"
+        second = None
+        try:
+            ref = shard_trainer(shard_config(), None, 3, snaps=(1, 3))
+            torch.save(ref.pop("snap"), ref_path)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ckpt = str(work / "ckpt")
+            # -- the main path: each rank sets its launch counts to 0 just
+            # before resume_or_init and reads them after its last step --
+            first = parallel.run_ranks(
+                shard_train_rank, SHARD_TP, (2, SHARD_TP // 2), ckpt,
+                str(ref_path), plant, device_type="cuda", timeout=900)
+            if plant is None:
+                second = parallel.run_ranks(
+                    shard_train_rank, SHARD_TP, (1, SHARD_TP), ckpt,
+                    str(ref_path), None, device_type="cuda", timeout=900)
+            # -- end of the main path --
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        readings, failures = shard_train_judge(first, second, ref["losses"])
+        if plant is not None:
+            return {"readings": readings, "failures": failures}
+        want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"),
+                             SHARD_LAYERS * 3)
+        for r, run in enumerate(first):
+            if run["launches"] != want:
+                failures.append(f"rank {r} launches {run['launches']}, "
+                                f"expected {want}")
+        for r, run in enumerate(second):
+            if run["start"] != 2 or len(run["losses"]) != 1:
+                failures.append(f"resumed rank {r} started at step "
+                                f"{run['start']} and ran "
+                                f"{len(run['losses'])} steps")
+            if set(run["launches"].values()) != {SHARD_LAYERS}:
+                failures.append(f"resumed rank {r} launches "
+                                f"{run['launches']}")
+        log(f"shard train: held against the one-process trainer: {readings}")
+        if failures:
+            raise AssertionError("shard train: " + "; ".join(failures))
+        losses = first[0]["losses"]
+        step_s = statistics.median(first[0]["step_s"][1:])
+        log(f"shard train: llama-8b widths at {SHARD_LAYERS} layers, "
+            f"B={SHARD_BATCH} S={SHARD_SEQ - 1} (seeded random tokens), "
+            f"dp=2 x tp=2 over {SHARD_TP} ranks: losses "
+            + ", ".join(f"{x:.6g}" for x in losses) + "; one process: "
+            + ", ".join(f"{x:.6g}" for x in ref["losses"])
+            + "; step times " + ", ".join(f"{t * 1e3:.1f}"
+                                          for t in first[0]["step_s"])
+            + " ms (one process " + ", ".join(
+                f"{t * 1e3:.1f}" for t in ref["step_s"]) + " ms); "
+            f"the step-2 save {first[0]['save_s'][0]:.2f} s; launches per "
+            "rank " + "; ".join(", ".join(str(v) for v in run["launches"]
+                                          .values()) for run in first)
+            + f" (K1, K2, K3 = {SHARD_LAYERS} x 3); peak allocated per rank "
+            + ", ".join(f"{run['peak'] / 2**30:.2f}" for run in first)
+            + " GiB")
+        log(f"shard train: restored onto (1, 4) in {second[0]['resume_s']:.2f}"
+            f" s, step 3 loss {second[0]['losses'][0]:.6g}; launches per rank "
+            + "; ".join(", ".join(str(v) for v in run["launches"].values())
+                        for run in second)
+            + f"; losses max|d| {readings['loss_max_abs_diff']:.4g} (limit "
+            f"{SHARD_LOSS_TOL}); parameters max|d| after step 1 "
+            f"{readings['max_abs_diff'][1]:.4g} (limit "
+            f"{SHARD_STEP_TOL[1]:.4g}), after step 3 "
+            f"{readings['max_abs_diff'][3]:.4g} (limit "
+            f"{SHARD_STEP_TOL[3]:.4g}); worst leaf's mean |d| "
+            f"{readings['worst_mean_lr'][1]:.4g} lr after step 1, "
+            f"{readings['worst_mean_lr'][3]:.4g} lr after step 3 (limit "
+            f"{SHARD_MEAN_TOL} lr)")
+        return {"batch": SHARD_BATCH, "seq": SHARD_SEQ, "losses": losses,
+                "resumed_loss": second[0]["losses"][0],
+                "reference_losses": ref["losses"],
+                "reference_step_s": ref["step_s"],
+                "step_s": first[0]["step_s"], "steady_step_s": step_s,
+                "save_s": first[0]["save_s"],
+                "resume_s": second[0]["resume_s"],
+                "peak_per_rank": [run["peak"] for run in first],
+                **readings,
+                "launches": first[0]["launches"],
+                "resume_launches": second[0]["launches"]}
+
+    def _shard_moe(self) -> dict:
+        """One Mixtral-width MoE layer at ep=2 (two ranks), forward and
+        backward at T=1023, against the one-process ``moe_ffn``."""
+        from tpushare_torch.workloads import parallel
+        runs = parallel.run_ranks(shard_moe_rank, 2, SHARD_MOE_T,
+                                  device_type="cuda", timeout=600)
+        worst = max(e / m for run in runs
+                    for e, m in run["errors"].values())
+        if not worst <= MOE_LAYER_REL:
+            raise AssertionError(f"shard moe: ep=2 vs one process "
+                                 f"{runs[0]['errors']} (limit "
+                                 f"{MOE_LAYER_REL} x max)")
+        r0 = runs[0]
+        log(f"shard moe: one Mixtral-width layer at ep=2, T={SHARD_MOE_T}, "
+            f"forward and backward: y, aux and every gradient within "
+            f"{worst:.4g} of the one-process moe_ffn's largest magnitude "
+            f"(limit {MOE_LAYER_REL}); {r0['ep_ms']:.3f} ms at ep=2 (rank 0, "
+            f"CUDA events) against {r0['one_ms']:.3f} ms in one process")
+        return {"T": SHARD_MOE_T, "worst_rel": worst, "errors": r0["errors"],
+                "ep_ms": r0["ep_ms"], "one_ms": r0["one_ms"]}
+
     # -- 7. entry ----------------------------------------------------------------
     def entry(self):
         import torch
@@ -1239,6 +1551,7 @@ class Smoke:
                    "serve": self.launches, "train": self.train_launches[0],
                    **{k: v["flash_fwd"]
                       for k, v in (*self.moe_launches.items(),
+                                   *self.shard_launches.items(),
                                    *self.vit_launches.items())}},
                "max_abs_err": max(r["max_abs_err_out"] for r in path),
                "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1262,6 +1575,7 @@ class Smoke:
                     "train": launches,
                     **{k: v[f"flash_bwd_{key}"]
                        for k, v in (*self.moe_launches.items(),
+                                    *self.shard_launches.items(),
                                     *self.vit_launches.items())
                        if f"flash_bwd_{key}" in v}},
                 "max_abs_err": max(r[key]["max_abs_err"] for r in path),
@@ -1598,9 +1912,9 @@ def moe_token_check(params, cfg, answers) -> dict:
     router: list = []
     inner = model.moe_ffn
 
-    def recording(p, x, mcfg):
+    def recording(p, x, mcfg, mesh=None):
         router.append((x.float() @ p["wg"]).reshape(*x.shape[:-1], -1))
-        return inner(p, x, mcfg)
+        return inner(p, x, mcfg, mesh=mesh)
 
     def read(calls, what):
         if len(router) != L * calls:
@@ -1710,10 +2024,10 @@ def _plant_rope_offset():
     from tpushare_torch.workloads import model
     inner = model._qkv
 
-    def faulty(h, lp, positions, cfg):
+    def faulty(h, lp, positions, cfg, mesh=None):
         if h.shape[1] == 1:
             positions = positions + 1
-        return inner(h, lp, positions, cfg)
+        return inner(h, lp, positions, cfg, mesh)
     return mock.patch.object(model, "_qkv", faulty)
 
 
@@ -1723,21 +2037,28 @@ PLANTS = {"kv-scale": _plant_kv_scale, "rope-offset": _plant_rope_offset}
 
 
 def planted(faults: list, out: str | None) -> int:
-    """The moe phase's replica and token check once with each fault of
-    ``faults`` planted (:data:`PLANTS`), after the card and build phases.
-    Prints the check's readings for each; exits 0 only if the check
-    refused every fault."""
+    """Each fault of ``faults`` planted once after the card and build
+    phases: one of :data:`PLANTS` into the moe phase's replica and its
+    token check, one of :data:`SHARD_PLANTS` into the shard phase's dp x
+    tp trainer and its check against the one-process trainer. Prints the
+    check's readings for each; exits 0 only if the check refused every
+    fault."""
     smoke = Smoke()
     smoke.card()
     smoke.build()
     readings, missed = {}, []
     for name in faults:
-        with moe_presets(), PLANTS[name]():
-            check = smoke._moe_serve()["token_check"]
+        if name in SHARD_PLANTS:
+            doc = SHARD_PLANTS[name].__doc__
+            check = smoke._shard_train(plant=name)
+        else:
+            doc = PLANTS[name].__doc__
+            with moe_presets(), PLANTS[name]():
+                check = smoke._moe_serve()["token_check"]
         readings[name] = check
-        log(f"plant {name}: {PLANTS[name].__doc__} The token check "
+        log(f"plant {name}: {' '.join(doc.split())} The check "
             + (f"refused it: {'; '.join(check['failures'])}"
-               if check["failures"] else "MISSED it"))
+               if check["failures"] else f"MISSED it: {check}"))
         if not check["failures"]:
             missed.append(name)
     if out:
@@ -1746,19 +2067,311 @@ def planted(faults: list, out: str | None) -> int:
     return 1 if missed else 0
 
 
-def run_child(argv: list, env: dict) -> dict:
-    """``player.run(argv)`` in a child process of this script (``--child``)
-    with ``env``; returns what the child reports."""
+def shard_config():
+    """The shard phase's trainer: llama-8b widths at ``SHARD_LAYERS``
+    layers, ``--attn flash``."""
+    import dataclasses
+    from tpushare_torch.workloads import model
+    cfg = dataclasses.replace(model.PRESETS["llama-8b"],
+                              n_layers=SHARD_LAYERS, attn="flash")
+    return cfg.validate()
+
+
+def shard_trainer(cfg, mesh, steps: int, ckpt_dir: str | None = None,
+                  ref: dict | None = None, snaps: tuple = ()) -> dict:
+    """The shard phase's trainer on ``mesh`` (None: one process) through
+    the calls a trainer with a mesh of its own makes:
+    ``TrainCheckpointer(ckpt_dir).resume_or_init(mesh=)`` (a fresh
+    ``init_params`` without ``ckpt_dir``), ``make_train_step`` over this
+    rank's rows of the seeded batch up to step ``steps``, a save at step
+    2. The launch counts are set to 0 just before the init and read
+    after the last step. After each step in ``snaps`` it keeps
+    ``SHARD_REF_LEAVES``: with ``ref`` (the one-process run's, by step)
+    the (max, sum, count) of |difference| over this rank's shards, else
+    the tensors. Returns the losses, the host seconds of each step, of
+    the init and of the save, the launches and those snapshots."""
+    import torch
+    from tpushare_torch.kernels import flash, flash_bwd
+    from tpushare_torch.workloads import model, parallel
+    from tpushare_torch.workloads.checkpoint import (
+        TrainCheckpointer, leaf_specs)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = torch.randint(0, cfg.vocab, (SHARD_BATCH, SHARD_SEQ),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SHARD_TOKEN_SEED), device=dev)
+    rows = parallel.local_shard(tokens, model.batch_spec(), mesh)
+    specs = leaf_specs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tx, train_step = model.make_train_step(cfg, learning_rate=SHARD_LR)
+    losses, step_s, save_s, snap = [], [], [], {}
+
+    def keep(params, step):
+        got = {}
+        for name, w in model.named_leaves(params):
+            if name not in SHARD_REF_LEAVES:
+                continue
+            w = w.detach()
+            w = w.to_local() if parallel.is_dtensor(w) else w
+            if ref is None:
+                got[name] = w.cpu().clone()
+                continue
+            want = parallel.local_shard(ref[step][name], specs[name], mesh)
+            d = (w.float() - want.to(dev).float()).abs()
+            got[name] = (d.max().item(), d.sum().item(), d.numel())
+        snap[step] = got
+
+    flash.LAUNCHES = 0
+    flash_bwd.LAUNCHES_DQ = flash_bwd.LAUNCHES_DKDV = 0
+    t0 = time.perf_counter()
+    ckpt = None
+    if ckpt_dir is not None:
+        ckpt = TrainCheckpointer(ckpt_dir)
+        params, opt, start = ckpt.resume_or_init(cfg, tx, gen, mesh=mesh)
+    else:
+        params = model.train_params(model.init_params(cfg, gen, mesh=mesh))
+        opt, start = tx.init(params), 0
+    resume_s = time.perf_counter() - t0
+    for done in range(start + 1, steps + 1):
+        t0 = time.perf_counter()
+        params, opt, loss = train_step(params, opt, rows)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        if done in snaps:
+            keep(params, done)
+        if ckpt is not None and done == 2:
+            t0 = time.perf_counter()
+            ckpt.save(done, params, opt, cfg)
+            save_s.append(time.perf_counter() - t0)
+    launches = {"flash_fwd": flash.LAUNCHES,
+                "flash_bwd_dq": flash_bwd.LAUNCHES_DQ,
+                "flash_bwd_dkdv": flash_bwd.LAUNCHES_DKDV}
+    return {"start": start, "losses": losses, "step_s": step_s,
+            "resume_s": resume_s, "save_s": save_s, "launches": launches,
+            "snap": snap}
+
+
+def shard_train_rank(mesh_shape: tuple, ckpt_dir: str, ref_path: str,
+                     plant: str | None) -> dict:
+    """One rank of the shard phase's trainer: :func:`shard_trainer` on
+    the dp x tp mesh of ``mesh_shape``, held against the one-process
+    run's leaves in ``ref_path``, with the fault ``plant`` in place (a
+    name of :data:`SHARD_PLANTS`) when one is given."""
+    import torch
+    from tpushare_torch.workloads import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, mmap=True)
+    fault = SHARD_PLANTS[plant]() if plant else contextlib.nullcontext()
+    with fault:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = parallel.make_mesh("cuda", tuple(mesh_shape))
+        out = shard_trainer(shard_config(), mesh, 3, ckpt_dir, ref,
+                            snaps=(1, 3))
+    return {**out, "peak": torch.cuda.max_memory_allocated()}
+
+
+def shard_train_judge(first: list, second: list | None,
+                      ref_losses: list) -> tuple[dict, list]:
+    """The sharded runs' readings against the one-process trainer's
+    (``first``: the dp x tp ranks' results, ``second``: those of the
+    resumed run, or None) and what breaks a limit: the losses
+    (``SHARD_LOSS_TOL``), every parameter after steps 1 and 3
+    (``SHARD_STEP_TOL``) and each leaf's mean |d| (``SHARD_MEAN_TOL``)."""
+    runs = [*first, *(second or [])]
+    loss_err = max(abs(a - b) for a, b in zip(first[0]["losses"],
+                                              ref_losses))
+    if second:
+        loss_err = max(loss_err, abs(second[0]["losses"][0] - ref_losses[2]))
+    max_d, mean_lr = {}, {}
+    for step in (1, 3):
+        total: dict = {}
+        for run in runs:
+            for name, (m, s, n) in run["snap"].get(step, {}).items():
+                max_d[step] = max(max_d.get(step, 0.0), m)
+                t = total.setdefault(name, [0.0, 0])
+                t[0] += s
+                t[1] += n
+        mean_lr[step] = {name: s / n / SHARD_LR
+                         for name, (s, n) in total.items()}
+    readings = {"loss_max_abs_diff": loss_err, "max_abs_diff": max_d,
+                "mean_abs_diff_lr": mean_lr,
+                "worst_mean_lr": {k: max(v.values())
+                                  for k, v in mean_lr.items()}}
+    failures = []
+    if not loss_err <= SHARD_LOSS_TOL:
+        failures.append(f"losses {first[0]['losses']} vs one process "
+                        f"{ref_losses}: max|d| {loss_err:.4g} (limit "
+                        f"{SHARD_LOSS_TOL})")
+    for step in (1, 3):
+        if not max_d[step] <= SHARD_STEP_TOL[step]:
+            failures.append(f"parameters after step {step} max|d| "
+                            f"{max_d[step]:.4g} (limit "
+                            f"{SHARD_STEP_TOL[step]:.4g})")
+        bad = {n: round(v, 4) for n, v in mean_lr[step].items()
+               if not v <= SHARD_MEAN_TOL}
+        if bad:
+            failures.append(f"after step {step} the mean |d| of {bad} "
+                            f"(in lr; limit {SHARD_MEAN_TOL})")
+    return readings, failures
+
+
+def _plant_dp_mean():
+    """Gradients never averaged over "dp" (each dp rank steps on its own
+    rows' gradient)."""
+    from unittest import mock
+
+    from tpushare_torch.workloads import parallel
+    return mock.patch.object(parallel, "dp_mean_grads",
+                             lambda params, mesh: None)
+
+
+def _plant_copy_to_bwd():
+    """``copy_to``'s backward without its all-reduce over "tp" (the
+    gradient of a column-parallel product's input is this rank's part
+    alone)."""
+    from unittest import mock
+
+    from tpushare_torch.workloads import parallel
+    return mock.patch.object(parallel._CopyTo, "backward",
+                             staticmethod(lambda ctx, g: (g, None)))
+
+
+# faults for ``--plant`` in the shard phase's trainer, planted in each of
+# its ranks for one dp x tp run, to read what its check sees of them
+SHARD_PLANTS = {"dp-mean": _plant_dp_mean, "copy-to-bwd": _plant_copy_to_bwd}
+
+
+def shard_moe_rank(T: int) -> dict:
+    """One rank of the ep=2 MoE layer: the layer on the (1, 1, 2) mesh and
+    the whole layer in this process, forward and backward of the same
+    scalar; returns each output's and gradient's (max|d| on this rank's
+    shard, max of the whole), and both passes' device ms."""
+    import torch
+    from tpushare_torch.workloads import moe, parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = parallel.make_mesh("cuda", (1, 1, 2), parallel.MOE_AXES)
+    cfg = moe.MoEConfig(d_model=4096, d_ff=14336, n_experts=8, top_k=2,
+                        capacity_factor=2.0, dtype=torch.bfloat16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def draw(m):
+        return moe.init_moe_params(
+            cfg, torch.Generator(device=dev).manual_seed(4), mesh=m)
+
+    full = {k: v.requires_grad_() for k, v in draw(None).items()}
+    sharded = {k: v.requires_grad_() for k, v in draw(mesh).items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(T, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    proj = torch.randn(T, 4096, generator=gen, device=dev)
+
+    def run(params):
+        xr = x.detach().requires_grad_()
+        y, aux = moe.moe_ffn(params, xr, cfg)
+        ((y.float() * proj).sum() + aux).backward()
+        return y, aux, xr.grad
+
+    y1, aux1, dx1 = run(full)
+    y2, aux2, dx2 = run(sharded)
+    errors = {}
+    for name, a, b in (("y", y2, y1), ("aux", aux2, aux1), ("dx", dx2, dx1)):
+        errors[name] = ((a.float() - b.float()).abs().max().item(),
+                        b.float().abs().max().item())
+    specs = moe.moe_param_specs()
+    for name in full:
+        want = parallel.local_shard(full[name].grad, specs[name], mesh)
+        got = sharded[name].grad.to_local()
+        errors[f"d{name}"] = ((got.float() - want.float()).abs().max().item(),
+                              full[name].grad.float().abs().max().item())
+
+    def timed(params):
+        for p in params.values():
+            p.grad = None
+        run(params)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(params)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    ep_ms = timed(sharded)
+    one_ms = timed(full)
+    return {"errors": errors, "ep_ms": ep_ms, "one_ms": one_ms}
+
+
+def serve_child(spec: dict) -> int:
+    """The child of the shard phase's replica: ``serve.build_server``
+    (rank 0 of ``--tp`` ranks) under the grant in the environment, the
+    prompts over HTTP with every rank's launch counts set to 0 just
+    before them and read just after, then the replica's first-token
+    logits of each prompt saved to ``spec["logits"]``; prints one
+    ``CHILD_RESULT`` line."""
+    import torch
+    from tpushare_torch.workloads import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    httpd, replica = serve.build_server(spec["argv"])
+    build_s = time.perf_counter() - t0
+    built = replica.stats()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    times, prefill_s, rows = [], [], []
+    try:
+        # a warm-up request meets the cold caches, then each prompt alone
+        # for one token (its time to first token); neither is counted
+        post(url, {"tokens": [spec["prompts"][0]], "steps": 2})
+        for p in spec["prompts"]:
+            t = time.perf_counter()
+            post(url, {"tokens": [p], "steps": 1})
+            prefill_s.append(time.perf_counter() - t)
+        replica.reset_stats()
+        for p in spec["prompts"]:
+            t = time.perf_counter()
+            got = post(url, {"tokens": [p], "steps": spec["steps"]})
+            times.append(time.perf_counter() - t)
+            check_rows([p], got, spec["steps"], spec["vocab"])
+            rows.append(got)
+        stats = replica.stats()
+        logits = torch.cat([replica.prefill_logits(torch.tensor([p]))
+                            for p in spec["prompts"]]).cpu()
+        torch.save(logits, spec["logits"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        replica.stop()
+    from tpushare_torch.workloads import parallel
+    print(CHILD_PREFIX + json.dumps({
+        "build_s": build_s, "built_stats": built, "stats": stats,
+        "request_s": times, "prefill_s": prefill_s, "rows": rows,
+        "transport": parallel.transport("cuda", len(stats))}), flush=True)
+    return 0
+
+
+def run_child_cmd(args: list, env: dict, timeout: float = 900) -> dict:
+    """This script with ``args`` in a child process with ``env``; returns
+    what the child reports on its ``CHILD_RESULT`` line."""
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--child",
-         json.dumps(argv)], env=env, capture_output=True, text=True,
-        timeout=600)
+        [sys.executable, str(Path(__file__).resolve()), *args], env=env,
+        capture_output=True, text=True, timeout=timeout)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith(CHILD_PREFIX)]
     if proc.returncode != 0 or len(lines) != 1:
-        raise RuntimeError(f"child player {argv} exited {proc.returncode}:"
+        raise RuntimeError(f"child {args[0]} exited {proc.returncode}:"
                            f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     return json.loads(lines[0][len(CHILD_PREFIX):])
+
+
+def run_child(argv: list, env: dict) -> dict:
+    """``player.run(argv)`` in a child process of this script (``--child``)
+    with ``env``; returns what the child reports."""
+    return run_child_cmd(["--child", json.dumps(argv)], env, timeout=600)
 
 
 CHILD_PREFIX = "CHILD_RESULT "
@@ -1860,8 +2473,8 @@ def compare(parent: Path, out_dir: Path) -> int:
     return 0
 
 
-PHASES = ("card", "build", "kernels", "train", "moe", "serve", "entry",
-          "vit")
+PHASES = ("card", "build", "kernels", "train", "moe", "serve", "shard",
+          "entry", "vit")
 
 
 def main(argv=None) -> int:
@@ -1877,19 +2490,23 @@ def main(argv=None) -> int:
                     "the times side by side (writes under "
                     "build/compare)")
     ap.add_argument("--plant", metavar="FAULTS",
-                    help="comma-separated subset of " + ",".join(PLANTS)
+                    help="comma-separated subset of " + ",".join(
+                        [*PLANTS, *SHARD_PLANTS])
                     + ": build, then run the moe replica and its token "
-                    "check once with each fault planted, and print what "
+                    "check (or the shard phase's dp x tp trainer and its "
+                    "check) once with each fault planted, and print what "
                     "the check reads (exits 0 only if it refuses each)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--serve-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     faults = [f for f in (args.plant or "").split(",") if f]
-    if set(faults) - set(PLANTS):
-        ap.error(f"unknown faults {sorted(set(faults) - set(PLANTS))}")
+    unknown = set(faults) - set(PLANTS) - set(SHARD_PLANTS)
+    if unknown:
+        ap.error(f"unknown faults {sorted(unknown)}")
     if not (ROOT / "tpushare_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no tpushare_torch package beside {__file__}",
               file=sys.stderr)
@@ -1897,6 +2514,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     if args.child is not None:
         return child(json.loads(args.child))
+    if args.serve_child is not None:
+        return serve_child(json.loads(args.serve_child))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",

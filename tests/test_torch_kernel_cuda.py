@@ -337,3 +337,34 @@ def test_backward_gqa_groups_match_plain(cuda, case):
     B, H, Hkv, S, D, dtype, causal, window = case
     args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window)
     _check_bwd(args, causal, window, dtype)
+
+
+# a tensor-parallel rank's heads, as the sharded paths hand them over:
+# the llama-8b replica at tp=4 (8 query and 2 kv heads a rank) prefilling,
+# the llama-8b trainer at tp=2 (16 and 4), in the model's [B, S, H, D]
+# layout transposed to [B, H, S, D]
+TP_CASES = [(1, 8, 2, 100, 128, bf16, True, None),
+            (1, 8, 2, 450, 128, bf16, True, None),
+            (1, 16, 4, 1023, 128, bf16, True, None)]
+TP_IDS = [f"H{c[1]}Hkv{c[2]}S{c[3]}" for c in TP_CASES]
+
+
+def _bshd(dev, B, H, Hkv, S, D, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
+            .transpose(1, 2) for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("case", TP_CASES, ids=TP_IDS)
+def test_kernels_at_a_tp_ranks_heads_match_plain(cuda, case):
+    B, H, Hkv, S, D, dtype, causal, window = case
+    q, k, v = _bshd(cuda, B, H, Hkv, S, D, dtype)
+    out, lse = flash.flash_fwd(q, k, v, causal, window)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal, window)
+    tol_o, tol_l = TOL[dtype]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
+    assert (lse - ref_lse).abs().max().item() <= tol_l
+    if S == 1023:
+        args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window,
+                           layout="bshd")
+        _check_bwd(args, causal, window, dtype)

@@ -1,0 +1,279 @@
+"""Rank-side halves of the port's multi-rank tests
+(tests/test_torch_parallel.py, tests/test_torch_sharded.py).
+
+Each function runs in every rank of a gloo world that
+``tpushare_torch.workloads.parallel.run_ranks`` starts, with
+``torch.distributed`` set up. They take numpy inputs and the JAX package's
+results, computed by the test in its own process, and return plain numbers:
+errors against those results and placements as specs. This module imports
+no JAX, so that a spawned rank never pays for importing it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import shutil
+
+import numpy as np
+import torch
+
+from tpushare_torch.workloads import checkpoint as ck
+from tpushare_torch.workloads import model as tm
+from tpushare_torch.workloads import moe as tmoe
+from tpushare_torch.workloads import parallel, player
+from tpushare_torch.workloads import vit as tv
+from tpushare_torch.workloads.convert import params_from_numpy
+from tpushare_torch.workloads.parallel import P
+
+
+def _rows(x, mesh):
+    """This rank's rows of a batch (the "dp" shard)."""
+    t = torch.as_tensor(np.asarray(x))
+    return parallel.local_shard(t, P("dp", *([None] * (t.dim() - 1))), mesh)
+
+
+def _leaf_errors(params, want: dict, specs: dict, mesh) -> np.ndarray:
+    """|this rank's shard - the same shard of ``want``| of every leaf of a
+    trainable tree, concatenated."""
+    errs = []
+    for name, w in tm.named_leaves(params):
+        full = torch.as_tensor(np.asarray(want[name]))
+        shard = parallel.local_shard(full, specs[name], mesh)
+        errs.append((w.detach().to_local() - shard).abs().reshape(-1))
+    return torch.cat(errs).numpy()
+
+
+def _spec(t) -> tuple:
+    return tuple(parallel.spec_of(t))
+
+
+def parallel_checks(data: dict) -> dict:
+    """The world of tests/test_torch_parallel.py."""
+    out = {}
+
+    # dp x tp llama-tiny fp32 train step (tests/test_workloads.py:82)
+    d = data["dense"]
+    cfg = dataclasses.replace(tm.PRESETS["llama-tiny"], dtype=torch.float32)
+    mesh = parallel.make_mesh("cpu", (2, 4))
+    params = tm.train_params(parallel.distribute(
+        params_from_numpy(d["params"]), tm.param_specs(cfg), mesh))
+    tx, step = tm.make_train_step(cfg)
+    params, _, loss = step(params, tx.init(params), _rows(d["tokens"], mesh))
+    errs = _leaf_errors(params, d["updated"], ck.leaf_specs(cfg), mesh)
+    out["dense"] = {"loss": float(loss), "max": float(errs.max()),
+                    "mean": float(errs.mean()),
+                    "wq": _spec(params["layers"][0]["wq"])}
+
+    # the sharded int8 forward on a (1, 8) mesh (tests/test_workloads.py:106)
+    q = data["int8"]
+    mesh18 = parallel.make_mesh("cpu", (1, 8))
+    cfg16 = tm.PRESETS["llama-tiny"]
+    qp = tm.quantize_int8(params_from_numpy(q["params"]))
+    qp = parallel.distribute(qp, tm.quant_specs(tm.param_specs(cfg16)),
+                             mesh18)
+    with torch.inference_mode():
+        logits = tm.forward(qp, torch.as_tensor(q["tokens"]), cfg16)
+    out["int8"] = {"max": float((logits - torch.as_tensor(q["logits"]))
+                                .abs().max()),
+                   "finite": bool(torch.isfinite(logits).all()),
+                   "scale_wo": _spec(qp["layers"]["wo"]["scale"]),
+                   "scale_wq": _spec(qp["layers"]["wq"]["scale"])}
+
+    # moe_ffn over ("dp", "ep") against the one-device call
+    # (tests/test_moe.py:77)
+    m = data["moe_ffn"]
+    mcfg = tmoe.MoEConfig(d_model=16, d_ff=32, n_experts=4, top_k=2,
+                          capacity_factor=4.0, dtype=torch.float32)
+    mesh_ep = parallel.make_mesh("cpu", (2, 4), ("dp", "ep"))
+    mp = parallel.distribute(params_from_numpy(m["params"]),
+                             tmoe.moe_param_specs(), mesh_ep)
+    y, aux = tmoe.moe_ffn(mp, _rows(m["x"], mesh_ep), mcfg)
+    out["moe_ffn"] = {"y": float((y - _rows(m["y"], mesh_ep)).abs().max()),
+                      "aux": float(aux), "w1": _spec(mp["w1"])}
+
+    # the llama-moe-tiny train step on dp x tp x ep (tests/test_moe.py:136)
+    e = data["moe_step"]
+    ecfg = dataclasses.replace(tm.PRESETS["llama-moe-tiny"],
+                               dtype=torch.float32,
+                               moe_capacity_factor=e["capacity_factor"])
+    mesh3 = parallel.make_mesh("cpu", (2, 2, 2), parallel.MOE_AXES)
+    eparams = tm.train_params(parallel.distribute(
+        params_from_numpy(e["params"]), tm.param_specs(ecfg), mesh3))
+    etx, estep = tm.make_train_step(ecfg)
+    eparams, _, eloss = estep(eparams, etx.init(eparams),
+                              _rows(e["tokens"], mesh3))
+    errs = _leaf_errors(eparams, e["updated"], ck.leaf_specs(ecfg), mesh3)
+    out["moe_step"] = {"loss": float(eloss), "max": float(errs.max()),
+                       "mean": float(errs.mean()),
+                       "w1": _spec(eparams["layers"][0]["w1"])}
+
+    # the ViT dp x tp forward (tests/test_vit.py:77)
+    v = data["vit"]
+    vcfg = dataclasses.replace(tv.PRESETS_VIT["vit-tiny"],
+                               dtype=torch.float32)
+    vp = parallel.distribute(params_from_numpy(v["params"]),
+                             tv.vit_param_specs(vcfg), mesh)
+    with torch.inference_mode():
+        vl = tv.vit_forward(vp, _rows(v["images"], mesh), vcfg)
+    out["vit"] = {"max": float((vl - _rows(v["logits"], mesh)).abs().max())}
+
+    # init_params with a mesh: every rank's shards of the one draw
+    full = tm.init_params(cfg16, torch.Generator().manual_seed(0))
+    for int8, specs in ((False, tm.param_specs(cfg16)),
+                        (True, tm.quant_specs(tm.param_specs(cfg16)))):
+        got = tm.init_params(cfg16, torch.Generator().manual_seed(0),
+                             mesh=mesh, int8=int8)
+        want = tm.quantize_int8(full) if int8 else full
+        same = parallel.tree_map(
+            lambda g, w, s: torch.equal(g.to_local(),
+                                        parallel.local_shard(w, s, mesh)),
+            got, want, specs)
+        out[f"init_int8={int8}"] = all(parallel.leaves(same))
+    return out
+
+
+def _trained(cfg, mesh, tokens, steps=2):
+    params = tm.train_params(tm.init_params(
+        cfg, torch.Generator().manual_seed(0), mesh=mesh))
+    tx, step = tm.make_train_step(cfg)
+    opt = tx.init(params)
+    for _ in range(steps):
+        params, opt, _ = step(params, opt, _rows(tokens, mesh))
+    return params, opt, tx, step
+
+
+def _full(t) -> torch.Tensor:
+    """The whole tensor of a DTensor (an all-reduce of zero-filled
+    buffers, one sharded dim at a time)."""
+    if not parallel.is_dtensor(t):
+        return t
+    out = t.to_local()
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            dim = pl.dim
+            moved = out.movedim(dim, -1).contiguous()
+            moved = parallel.gather_last(moved, t.device_mesh, name)
+            out = moved.movedim(-1, dim)
+    return out
+
+
+def sharded_checks(data: dict) -> dict:
+    """The world of tests/test_torch_sharded.py."""
+    out = {}
+    root = data["dir"]
+    cfg = dataclasses.replace(tm.PRESETS["llama-tiny"], dtype=torch.float32)
+    tokens = data["tokens"]
+
+    # cross-mesh restore, dp 2 x tp 4 -> 4 x 2 (tests/test_checkpoint.py:65)
+    m24 = parallel.make_mesh("cpu", (2, 4))
+    m42 = parallel.make_mesh("cpu", (4, 2))
+    params, opt, tx, step = _trained(cfg, m24, tokens)
+    ckpt = ck.TrainCheckpointer(f"{root}/llama")
+    ckpt.save(2, params, opt, cfg)
+    saved = {n: _full(w.detach()) for n, w in tm.named_leaves(params)}
+    saved_opt = {n: {k: _full(v) for k, v in opt.state[w].items()}
+                 for n, w in tm.named_leaves(params)}
+    rp, ro, rstep = ckpt.restore(cfg, tx, device="cpu", mesh=m42)
+    # what a resuming trainer calls: the same state on the same mesh
+    gp, go, gstart = ckpt.resume_or_init(cfg, tx, torch.Generator()
+                                         .manual_seed(1), mesh=m42)
+    resumed = gstart == 2 and all(
+        torch.equal(a.detach().to_local(), b.detach().to_local())
+        and a.placements == b.placements
+        for a, b in zip(tm.param_leaves(gp), tm.param_leaves(rp))) and all(
+        torch.equal(go.state[a]["exp_avg_sq"].to_local(),
+                    ro.state[b]["exp_avg_sq"].to_local())
+        for a, b in zip(tm.param_leaves(gp), tm.param_leaves(rp)))
+    del gp, go
+    same = all(torch.equal(_full(w.detach()), saved[n])
+               for n, w in tm.named_leaves(rp))
+    same_opt = all(torch.equal(_full(v), saved_opt[n][k])
+                   for n, w in tm.named_leaves(rp)
+                   for k, v in ro.state[w].items())
+    wq = rp["layers"][0]["wq"]
+    mu = ro.state[wq]["exp_avg"]
+    # the resharded state trains on: the next step equals the one the
+    # saving mesh takes
+    rp, ro, rloss = step(rp, ro, _rows(tokens, m42))
+    params, opt, loss = step(params, opt, _rows(tokens, m24))
+    out["cross_mesh"] = {
+        "step": rstep, "same": same, "same_opt": same_opt,
+        "resumed": resumed,
+        "wq": _spec(wq), "wq_mesh": dict(zip(wq.device_mesh.mesh_dim_names,
+                                             wq.device_mesh.shape)),
+        "mu": _spec(mu), "mu_mesh": dict(zip(mu.device_mesh.mesh_dim_names,
+                                             mu.device_mesh.shape)),
+        "local_wq": tuple(wq.to_local().shape),
+        "next_loss": (float(rloss), float(loss))}
+
+    # the ViT family (tests/test_checkpoint.py:137)
+    vcfg = tv.PRESETS_VIT["vit-tiny"]
+    vparams = tm.train_params(tv.init_vit_params(
+        vcfg, torch.Generator().manual_seed(0), mesh=m24))
+    vtx, vstep = tv.make_vit_train_step(vcfg)
+    vopt = vtx.init(vparams)
+    images, labels = data["images"], data["labels"]
+    for _ in range(2):
+        vparams, vopt, _ = vstep(vparams, vopt, _rows(images, m24),
+                                 _rows(labels, m24))
+    vck = ck.TrainCheckpointer(f"{root}/vit")
+    vck.save(2, vparams, vopt, vcfg)
+    vrp, _, _ = vck.restore(vcfg, vtx, device="cpu", mesh=m42)
+    vwq = vrp["layers"][1]["wq"]
+    out["vit"] = {
+        "same": all(torch.equal(_full(a.detach()), _full(b.detach()))
+                    for a, b in zip(tm.param_leaves(vparams),
+                                    tm.param_leaves(vrp))),
+        "wq": _spec(vwq), "wq_mesh": dict(zip(
+            vwq.device_mesh.mesh_dim_names, vwq.device_mesh.shape))}
+    try:
+        vck.restore(cfg, tx, device="cpu", mesh=m42)
+        out["vit"]["cross_family"] = "restored"
+    except ValueError as e:
+        out["vit"]["cross_family"] = str(e)
+
+    # the restore target (tests/test_checkpoint.py:225)
+    abstract = ck.abstract_train_state(cfg, tx, mesh=m24)
+    out["abstract"] = {
+        "wq": _spec(abstract["params"]["params.layers.0.wq"]),
+        "nu": _spec(abstract["opt_state"]["opt.layers.0.wq.exp_avg_sq"]),
+        "step": parallel.is_dtensor(abstract["opt_state"]
+                                    ["opt.layers.0.wq.step"]),
+        "keys": len(abstract["params"]), "opt_keys": len(
+            abstract["opt_state"])}
+
+    # TrainStateHandler with a mesh: save on 2 x 4, restore on 4 x 2
+    from tpushare_torch.workloads.migrate import TrainStateHandler
+    handler = TrainStateHandler(f"{root}/migrate", lambda: (
+        7, params, opt, cfg), tx, device="cpu", mesh=m42)
+    handler.save({"metadata": {"name": "p"}}, None)
+    handler.restore({"metadata": {"name": "p"}}, None)
+    hp, _, hstep = handler.restored
+    out["handler"] = {
+        "step": hstep, "wq": dict(zip(
+            hp["layers"][0]["wq"].device_mesh.mesh_dim_names,
+            hp["layers"][0]["wq"].device_mesh.shape)),
+        "same": all(torch.equal(_full(a.detach()), _full(b.detach()))
+                    for a, b in zip(tm.param_leaves(params),
+                                    tm.param_leaves(hp)))}
+
+    # the player's --ckpt-dir over the world's ranks: the (1, n) mesh,
+    # then resumed on it
+    base = ["--preset", "llama-tiny", "--mode", "train", "--batch", "2",
+            "--seq", "16", "--device", "cpu", "--ckpt-dir",
+            f"{root}/player", "--ckpt-every", "1"]
+    first = player.run([*base, "--steps", "2"], return_state=True)
+    again = player.run([*base, "--steps", "3"], return_state=True)
+    out["player"] = {
+        "first": (first["start_step"], first["steps"],
+                  dict(zip(first["params"]["embed"].device_mesh
+                           .mesh_dim_names,
+                           first["params"]["embed"].device_mesh.shape))),
+        "again": (again["start_step"], again["steps"],
+                  dict(zip(again["params"]["embed"].device_mesh
+                           .mesh_dim_names,
+                           again["params"]["embed"].device_mesh.shape))),
+        "losses": first["losses"] + again["losses"]}
+    if torch.distributed.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out

@@ -1,11 +1,12 @@
-"""Training checkpoint/resume on one process: the port of
+"""Training checkpoint/resume: the port of
 ``tpushare/workloads/checkpoint.py``.
 
 A trainer that is preempted and placed again resumes from its latest
 durable step instead of from scratch; ``samples/7-vit.yaml``'s "an
 eviction costs at most ``--ckpt-every`` steps" rests on it. The
 reference writes through orbax; the port writes through
-``torch.distributed.checkpoint`` (DCP), one process, no process group:
+``torch.distributed.checkpoint`` (DCP), in one process or over the
+ranks of a process group:
 
 - **State.** The parameters of a trainable tree
   (:func:`~tpushare_torch.workloads.model.train_params`, either family)
@@ -26,9 +27,17 @@ reference writes through orbax; the port writes through
   raises ``ValueError`` naming both. A checkpoint without a family tag
   is llama, as in the reference.
 
-Not ported yet: sharded save and cross-mesh restore (the reference's
-``abstract_train_state`` and ``opt_specs_like``), which wait for the
-port's sharded slice and its DTensors (ROADMAP.md Queue 1 item 12).
+- **Sharded save, cross-mesh restore.** A tree of DTensors on a mesh
+  (``init_params(cfg, gen, mesh=...)``, see
+  :mod:`~tpushare_torch.workloads.parallel`)
+  is saved by every rank of the process group into one step directory,
+  each rank writing its own shards. :meth:`TrainCheckpointer.restore`
+  with ``mesh=`` reads onto the target mesh's placements
+  (:func:`abstract_train_state`), which may differ from the saving one
+  (dp 2 x tp 4 -> 4 x 2): DCP reads each rank's new shard from the files,
+  with no gather onto one rank. The optimizer's moments take their
+  parameter's placements, the specs :func:`opt_specs_like` names.
+
 Loading checkpoints across the two frameworks is not a goal.
 """
 
@@ -47,7 +56,9 @@ from typing import Any
 import torch
 
 from tpushare_torch.workloads.model import (
-    ModelConfig, init_params, make_train_step, named_leaves, train_params)
+    ModelConfig, init_params, make_train_step, named_leaves, param_specs,
+    train_params)
+from tpushare_torch.workloads.parallel import P
 
 # geometry fields that must match between the checkpoint and the resuming
 # process (the reference's lists); dtype is deliberately absent (a bf16
@@ -77,11 +88,84 @@ def _family(cfg):
         f"{type(cfg).__qualname__} — teach _family() about it")
 
 
+def _specs(cfg) -> dict:
+    """The family's spec tree (``param_specs`` or ``vit_param_specs``)."""
+    if _family(cfg)[0] == "vit":
+        from tpushare_torch.workloads import vit
+        return vit.vit_param_specs(cfg)
+    return param_specs(cfg)
+
+
 def _geometry(cfg) -> dict:
     name, _, fields, _ = _family(cfg)
     geo = {f: getattr(cfg, f) for f in fields}
     geo["family"] = name
     return geo
+
+
+def leaf_specs(cfg) -> dict:
+    """The spec of every leaf of a trainable tree by its path
+    (:func:`~tpushare_torch.workloads.model.named_leaves`): a top-level
+    weight's own, a layer's ``layers.<i>.<name>`` its stack's without the
+    layer axis."""
+    specs = _specs(cfg)
+    out = {}
+    for name, spec in specs.items():
+        if name != "layers":
+            out[name] = spec
+    for i in range(cfg.n_layers):
+        for name, spec in specs["layers"].items():
+            out[f"layers.{i}.{name}"] = P(*spec[1:])
+    return out
+
+
+def opt_specs_like(cfg, abstract_opt: dict) -> dict:
+    """The spec of every optimizer state entry of a flat state dict
+    (``opt.<path>.<key>``, as :func:`train_state_dict` names them): a
+    moment takes its parameter's spec, an entry of another rank (the
+    step count) is replicated, ``P()``."""
+    index = leaf_specs(cfg)
+    out = {}
+    for key, value in abstract_opt.items():
+        name = key[len("opt."):].rpartition(".")[0]
+        spec = index.get(name)
+        out[key] = spec if spec is not None and value.dim() == len(spec) \
+            else P()
+    return out
+
+
+def abstract_train_state(cfg, tx: Any, mesh=None, device="cpu") -> dict:
+    """The restore target: ``{"params": {...}, "opt_state": {...}}``, the
+    flat state dicts a restore reads into, allocated and not drawn (the
+    AdamW moments and step count of every parameter). On a ``mesh`` the
+    tensors are DTensors on its placements (:func:`leaf_specs`,
+    :func:`opt_specs_like`): what makes a restore cross-mesh, since DCP
+    reads each shard straight onto its target."""
+    return _abstract(_targets(cfg, tx, mesh, device)[0])
+
+
+def _abstract(params) -> dict:
+    """:func:`abstract_train_state` over an allocated tree: its
+    ``params`` entries share the tree's storage, so a restore that reads
+    into them fills the tree."""
+    sd = {f"params.{n}": w.detach() for n, w in named_leaves(params)}
+    opt = {}
+    for n, w in named_leaves(params):
+        opt[f"opt.{n}.step"] = torch.zeros((), dtype=torch.float32)
+        for key in ("exp_avg", "exp_avg_sq"):
+            opt[f"opt.{n}.{key}"] = torch.empty_like(w.detach())
+    return {"params": sd, "opt_state": opt}
+
+
+def _targets(cfg, tx, mesh, device):
+    """A trainable tree allocated without drawing (on ``mesh`` when given)
+    and ``tx``'s optimizer over it."""
+    cfg.validate()
+    from tpushare_torch.workloads import resolve_device
+    init_fn = _family(cfg)[1]
+    params = train_params(init_fn(cfg, None, mesh=mesh,
+                                  device=resolve_device(device)))
+    return params, tx.init(params)
 
 
 def _opt_params(opt_state) -> list:
@@ -108,6 +192,27 @@ def train_state_dict(params, opt_state) -> dict:
 def _no_dist() -> bool:
     import torch.distributed as dist
     return not (dist.is_available() and dist.is_initialized())
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+    return _no_dist() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if not _no_dist():
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _same_name(name: str) -> str:
+    """``name`` as rank 0 chose it, on every rank of the process group."""
+    if _no_dist():
+        return name
+    import torch.distributed as dist
+    box = [name]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 @contextlib.contextmanager
@@ -163,35 +268,51 @@ class TrainCheckpointer:
     def save(self, step: int, params: Any, opt_state: Any, cfg) -> None:
         """Write ``step`` and return once it is durable: the state into a
         temporary directory, then ``meta.json``, then one rename to the
-        step's directory. Older steps beyond ``keep`` are deleted."""
+        step's directory. Older steps beyond ``keep`` are deleted. In a
+        process group every rank calls it: each writes its own shards
+        into the directory rank 0 names, and rank 0 finishes the step."""
         import torch.distributed.checkpoint as dcp
         sd = train_state_dict(params, opt_state)
-        tmp = self.directory / f"{_TMP_PREFIX}{step}-{uuid.uuid4().hex}"
-        tmp.mkdir()
+        tmp = self.directory / _same_name(
+            f"{_TMP_PREFIX}{step}-{uuid.uuid4().hex}")
+        if _rank0():
+            tmp.mkdir()
+        _barrier()
         try:
             with _single_process():
                 dcp.save(sd, storage_writer=dcp.FileSystemWriter(
                     tmp, sync_files=True), no_dist=_no_dist())
-            with open(tmp / META, "w", encoding="utf-8") as f:
-                json.dump({"step": step, "geometry": _geometry(cfg)}, f,
-                          sort_keys=True)
-                f.flush()
-                os.fsync(f.fileno())
-            _fsync_dir(tmp)
-            final = self._step_dir(step)
             old = None
-            if final.exists():  # saving a step again replaces it whole
-                old = self.directory / f"{_TMP_PREFIX}old-{uuid.uuid4().hex}"
-                os.replace(final, old)
-            os.replace(tmp, final)
-            _fsync_dir(self.directory)
+            if _rank0():
+                old = self._finish(step, tmp, cfg)
         except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if _rank0():
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
-        if old is not None:
-            shutil.rmtree(old, ignore_errors=True)
-        for stale in self.steps()[:-self.keep]:
-            shutil.rmtree(self._step_dir(stale), ignore_errors=True)
+        _barrier()
+        if _rank0():
+            if old is not None:
+                shutil.rmtree(old, ignore_errors=True)
+            for stale in self.steps()[:-self.keep]:
+                shutil.rmtree(self._step_dir(stale), ignore_errors=True)
+
+    def _finish(self, step: int, tmp: Path, cfg) -> Path | None:
+        """``meta.json`` into ``tmp``, then ``tmp`` renamed to the step's
+        directory; returns the directory a step saved again replaced."""
+        with open(tmp / META, "w", encoding="utf-8") as f:
+            json.dump({"step": step, "geometry": _geometry(cfg)}, f,
+                      sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_dir(tmp)
+        final = self._step_dir(step)
+        old = None
+        if final.exists():  # saving a step again replaces it whole
+            old = self.directory / f"{_TMP_PREFIX}old-{uuid.uuid4().hex}"
+            os.replace(final, old)
+        os.replace(tmp, final)
+        _fsync_dir(self.directory)
+        return old
 
     def maybe_save(self, step: int, params: Any, opt_state: Any, cfg,
                    every: int) -> bool:
@@ -201,13 +322,14 @@ class TrainCheckpointer:
         return True
 
     def restore(self, cfg, tx: Any, device="cuda",
-                step: int | None = None) -> tuple[Any, Any, int]:
+                step: int | None = None, mesh=None) -> tuple[Any, Any, int]:
         """Returns ``(params, opt_state, step)`` at ``step`` (default the
         latest): the trainable tree on ``device`` and ``tx``'s optimizer
-        over it, its AdamW state restored. Raises FileNotFoundError when
-        the directory holds no checkpoint and ValueError on a geometry or
-        family mismatch, before any state is read."""
-        from tpushare_torch.workloads import resolve_device
+        over it, its AdamW state restored; with ``mesh``, DTensors on the
+        mesh's placements, whatever mesh saved them (every rank calls it).
+        Raises FileNotFoundError when the directory holds no checkpoint
+        and ValueError on a geometry or family mismatch, before any state
+        is read."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -227,22 +349,20 @@ class TrainCheckpointer:
             raise ValueError(
                 f"checkpoint geometry {saved_geo} != resuming config "
                 f"{want_geo} — refusing to load mismatched state")
-        device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(0)
-        params = train_params(_family(cfg)[1](cfg, gen))
-        opt_state = tx.init(params)
-        _load_state(path, params, opt_state)
+        params, opt_state = _targets(cfg, tx, mesh, device)
+        _load_state(path, params, opt_state, _abstract(params))
         return params, opt_state, step
 
-    def resume_or_init(self, cfg, tx: Any, generator: torch.Generator
-                       ) -> tuple[Any, Any, int]:
+    def resume_or_init(self, cfg, tx: Any, generator: torch.Generator,
+                       mesh=None) -> tuple[Any, Any, int]:
         """The latest checkpoint if one exists, else a fresh init from
-        ``generator`` (on its device): the one call a preemptable trainer
-        makes at startup. Returns ``(params, opt_state, start_step)``;
-        start_step 0 means fresh."""
+        ``generator`` (on its device; on ``mesh``, each rank's shards of
+        the same draw): the one call a preemptable trainer makes at
+        startup. Returns ``(params, opt_state, start_step)``; start_step
+        0 means fresh."""
         if self.latest_step() is not None:
-            return self.restore(cfg, tx, device=generator.device)
-        params = train_params(_family(cfg)[1](cfg, generator))
+            return self.restore(cfg, tx, device=generator.device, mesh=mesh)
+        params = train_params(_family(cfg)[1](cfg, generator, mesh=mesh))
         return params, tx.init(params), 0
 
     def close(self) -> None:
@@ -256,37 +376,40 @@ class TrainCheckpointer:
         self.close()
 
 
-def _load_state(path: Path, params, opt_state) -> None:
-    """Read a step's state into ``params`` (in place, through their
-    storage) and into ``opt_state``'s AdamW state."""
+def _load_state(path: Path, params, opt_state, abstract: dict) -> None:
+    """Read a step's state into ``abstract``'s targets (those of
+    :func:`abstract_train_state`; the parameters in place, through the
+    tree's storage) and the saved AdamW state into ``opt_state``. Every
+    saved entry must have its target's shape; DCP casts it to the
+    target's dtype (a bf16 run may resume an fp32 one)."""
     import torch.distributed.checkpoint as dcp
     saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    leaves = list(named_leaves(params))
-    target = {f"params.{name}": w.detach() for name, w in leaves}
+    targets = {**abstract["params"], **abstract["opt_state"]}
     want = {k for k in saved if k.startswith("params.")}
-    if want != set(target):
+    if want != set(abstract["params"]):
         raise ValueError(
             f"checkpoint parameters differ from the config's: missing "
-            f"{sorted(set(target) - want)[:4]}, extra "
-            f"{sorted(want - set(target))[:4]}")
-    by_name = {name: w for name, w in leaves}
+            f"{sorted(set(abstract['params']) - want)[:4]}, extra "
+            f"{sorted(want - set(abstract['params']))[:4]}")
+    load = {}
     opt_keys: dict[str, dict[str, str]] = {}
     for key, meta in saved.items():
-        if not key.startswith("opt."):
-            continue
-        name, _, state_key = key[len("opt."):].rpartition(".")
-        w = by_name[name]
-        props = meta.properties
-        # moments on the parameter's device; step counts where the
-        # optimizer's load_state_dict places them
-        dev = w.device if state_key != "step" else torch.device("cpu")
-        target[key] = torch.empty(tuple(meta.size), dtype=props.dtype,
-                                  device=dev)
-        opt_keys.setdefault(name, {})[state_key] = key
+        if key not in targets:
+            raise ValueError(f"checkpoint state {key} has no target")
+        t = targets[key]
+        if tuple(meta.size) != tuple(t.shape):
+            raise ValueError(f"checkpoint state {key} of shape "
+                             f"{tuple(meta.size)} for a target of "
+                             f"{tuple(t.shape)}")
+        load[key] = t
+        if key.startswith("opt."):
+            name, _, state_key = key[len("opt."):].rpartition(".")
+            opt_keys.setdefault(name, {})[state_key] = key
     with _single_process():
-        dcp.load(target, checkpoint_id=path, no_dist=_no_dist())
-    state = {i: {sk: target[k] for sk, k in opt_keys[name].items()}
-             for i, (name, _) in enumerate(leaves) if name in opt_keys}
+        dcp.load(load, checkpoint_id=path, no_dist=_no_dist())
+    state = {i: {sk: load[k] for sk, k in opt_keys[name].items()}
+             for i, (name, _) in enumerate(named_leaves(params))
+             if name in opt_keys}
     sd = opt_state.state_dict()
     sd["state"] = state
     opt_state.load_state_dict(sd)

@@ -100,15 +100,20 @@ class TrainStateHandler:
     supplies ``state_fn() -> (step, params, opt_state, cfg)`` and ``tx``
     (its ``AdamW``); save blocks until the step is durable, and restore
     reads the latest step back onto ``device`` (default: the device the
-    loop's parameters are on) and keeps it in :attr:`restored`."""
+    loop's parameters are on) and keeps it in :attr:`restored`. With a
+    ``mesh`` (every rank of a sharded loop holds a handler) the save is
+    sharded and the restore lands on that mesh's placements, which may
+    differ from the saving one's: a re-placed gang resumes on a
+    different slice shape."""
 
     def __init__(self, directory: str, state_fn, tx, device=None,
-                 keep: int = 3) -> None:
+                 keep: int = 3, mesh=None) -> None:
         from tpushare_torch.workloads.checkpoint import TrainCheckpointer
         self._ckpt = TrainCheckpointer(directory, keep=keep)
         self._state_fn = state_fn
         self._tx = tx
         self._device = device
+        self._mesh = mesh
         self._restored: Any = None
 
     @property
@@ -125,4 +130,5 @@ class TrainStateHandler:
         from tpushare_torch.workloads.model import param_leaves
         _step, params, _opt, cfg = self._state_fn()
         device = self._device or param_leaves(params)[0].device
-        self._restored = self._ckpt.restore(cfg, self._tx, device=device)
+        self._restored = self._ckpt.restore(cfg, self._tx, device=device,
+                                            mesh=self._mesh)

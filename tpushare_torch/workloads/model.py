@@ -22,6 +22,17 @@ applied after the product.
 
 Device: everything runs where the parameters are; :func:`init_params`
 makes them on its generator's device.
+
+Sharded: :func:`param_specs`, :func:`quant_specs` and :func:`batch_spec`
+are the reference's layout (Megatron over "tp", experts over "ep", the
+batch over "dp") in the port's spec type, and ``init_params(cfg, gen,
+mesh=...)`` draws the same weights as ``init_params(cfg, gen)`` and keeps
+each rank's shard as a DTensor (:mod:`tpushare_torch.workloads.parallel`).
+Every function here takes such a tree: it computes on the local shards,
+reads the local head counts from the weights' shapes, and adds the
+reference's collectives: one all-reduce after ``wo`` and one after
+``w2`` (or the experts) per layer, the gradient's all-reduce before the
+column-parallel products, and the gather of the vocab-sharded logits.
 """
 
 from __future__ import annotations
@@ -31,9 +42,12 @@ from typing import Any
 
 import torch
 
+from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
     flash_attention, sliding_window_mask)
-from tpushare_torch.workloads.moe import MoEConfig, init_moe_params, moe_ffn
+from tpushare_torch.workloads.moe import (
+    MoEConfig, init_moe_params, moe_ffn, moe_param_specs)
+from tpushare_torch.workloads.parallel import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,44 +119,134 @@ PRESETS = {
 
 # -- init ---------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                mesh=None, int8: bool = False, device=None) -> dict:
     """Stacked-layer parameters (leading axis = layer), drawn from
     ``generator`` on its device: N(0, 1/fan_in) in fp32, cast to
     cfg.dtype, norms at one. Draw order: embed, wq, wk, wv, wo, the FFN,
     lm_head. The dense FFN draws w1, w3, w2; an MoE FFN draws each
     ``[L, ...]`` stack of :func:`~tpushare_torch.workloads.moe.init_moe_params`
     in its order (wg, left fp32, then w1, w3, w2), giving the reference's
-    ``[L, d, E]`` router and ``[L, E, d, f]`` / ``[L, E, f, d]`` experts."""
+    ``[L, d, E]`` router and ``[L, E, d, f]`` / ``[L, E, f, d]`` experts.
+
+    ``int8`` returns ``quantize_int8`` of those weights. With a ``mesh``
+    every rank draws the same values, one weight stack at a time and a
+    piece at a time, keeps its shard under :func:`param_specs` (with
+    ``int8``, :func:`quant_specs`: each weight quantized whole, then
+    sharded) and returns DTensors. ``generator`` None allocates the same
+    tree on ``device`` without drawing: a target to load into."""
     cfg.validate()
-    dev = generator.device
+    dev = generator.device if generator is not None else torch.device(
+        device or "cpu")
     L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    specs = param_specs(cfg) if mesh is not None else None
 
-    def w(*shape, fan_in):
-        x = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return x.mul_(fan_in ** -0.5).to(cfg.dtype)
+    def spec(name, top=False):
+        if specs is None:
+            return None
+        return specs[name] if top else specs["layers"][name]
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+    def w(name, *shape, fan_in, top=False):
+        s = spec(name, top)
+        quant = int8 and name in QUANT_KEYS + ("lm_head",)
+        own, amax = parallel.draw(shape, generator, fan_in ** -0.5,
+                                  cfg.dtype, s, mesh, amax=quant, device=dev)
+        if quant:
+            return _wrap(_q_with(own, amax), _qspec(s) if s else None, mesh)
+        return _wrap(own, s, mesh)
 
-    embed = w(v, d, fan_in=d)
+    def ones(name, *shape, top=False):
+        t = torch.ones(shape, dtype=cfg.dtype, device=dev)
+        return _wrap(t, spec(name, top), mesh)
+
+    embed = w("embed", v, d, fan_in=d, top=True)
     layers = {
-        "attn_norm": ones(L, d),
-        "wq": w(L, d, nh * hd, fan_in=d),
-        "wk": w(L, d, nkv * hd, fan_in=d),
-        "wv": w(L, d, nkv * hd, fan_in=d),
-        "wo": w(L, nh * hd, d, fan_in=nh * hd),
-        "ffn_norm": ones(L, d),
+        "attn_norm": ones("attn_norm", L, d),
+        "wq": w("wq", L, d, nh * hd, fan_in=d),
+        "wk": w("wk", L, d, nkv * hd, fan_in=d),
+        "wv": w("wv", L, d, nkv * hd, fan_in=d),
+        "wo": w("wo", L, nh * hd, d, fan_in=nh * hd),
+        "ffn_norm": ones("ffn_norm", L, d),
     }
     if cfg.moe_experts > 0:
-        layers.update(init_moe_params(cfg.moe, generator, lead=(L,)))
+        layers.update(init_moe_params(
+            cfg.moe, generator, lead=(L,), mesh=mesh, device=dev,
+            specs=None if specs is None else specs["layers"]))
     else:
-        layers.update({"w1": w(L, d, f, fan_in=d),
-                       "w3": w(L, d, f, fan_in=d),
-                       "w2": w(L, f, d, fan_in=f)})
-    return {"embed": embed, "layers": layers, "final_norm": ones(d),
-            "lm_head": w(d, v, fan_in=d)}
+        layers.update({"w1": w("w1", L, d, f, fan_in=d),
+                       "w3": w("w3", L, d, f, fan_in=d),
+                       "w2": w("w2", L, f, d, fan_in=f)})
+    return {"embed": embed, "layers": layers,
+            "final_norm": ones("final_norm", d, top=True),
+            "lm_head": w("lm_head", d, v, fan_in=d, top=True)}
+
+
+def _wrap(value, spec, mesh):
+    """A local shard (or an int8 dict of them) as DTensors under ``spec``
+    on ``mesh``; unchanged without a mesh."""
+    if mesh is None:
+        return value
+    if isinstance(value, dict):
+        return {k: parallel.as_dtensor(value[k], spec[k], mesh)
+                for k in value}
+    if not value.is_contiguous():
+        value = value.contiguous()
+    return parallel.as_dtensor(value, spec, mesh)
+
+
+# -- sharding -----------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's spec tree for :func:`init_params`'s tree: Megatron
+    tensor parallelism over "tp" (heads and hidden on the output dim of
+    the in-projections, the input dim of the out-projections: one
+    all-reduce after wo and one after w2 per block), MoE experts over
+    "ep" (moe_param_specs with the layer axis prepended), lm_head's vocab
+    over "tp"."""
+    layers = {
+        "attn_norm": P(None, None),
+        "wq": P(None, None, "tp"),
+        "wk": P(None, None, "tp"),
+        "wv": P(None, None, "tp"),
+        "wo": P(None, "tp", None),
+        "ffn_norm": P(None, None),
+    }
+    if cfg.moe_experts > 0:
+        layers.update({name: P(None, *spec)
+                       for name, spec in moe_param_specs().items()})
+    else:
+        layers.update({
+            "w1": P(None, None, "tp"),
+            "w3": P(None, None, "tp"),
+            "w2": P(None, "tp", None),
+        })
+    return {
+        "embed": P(None, None),
+        "layers": layers,
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
+    }
+
+
+def batch_spec() -> P:
+    return P("dp", None)
+
+
+def quant_specs(specs: dict) -> dict:
+    """The spec tree of quantized parameters: int8 shards like the weight,
+    its per-output-channel scale like the weight's last dim (replicated
+    where the weight is sharded on its input dim, whose reduction it is)."""
+    out = {"embed": specs["embed"], "final_norm": specs["final_norm"],
+           "lm_head": _qspec(specs["lm_head"]), "layers": {}}
+    for name, spec in specs["layers"].items():
+        quant = name in QUANT_KEYS and len(spec) == 3
+        out["layers"][name] = _qspec(spec) if quant else spec
+    return out
+
+
+def _qspec(spec: P) -> dict:
+    return {"int8": spec, "scale": P(*spec[:-2], None, spec[-1])}
 
 
 # -- int8 weight quantization -------------------------------------------------
@@ -168,18 +272,35 @@ def _sym_int8(x: torch.Tensor, dim: int):
     reduced dim kept). Shared by the weights (per output channel,
     dim=-2) and the KV cache (per token and head, dim=-1)."""
     x32 = x.float()
-    scale = (x32.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(1e-8)
+    return _int8_with(x32, x32.abs().amax(dim=dim, keepdim=True))
+
+
+def _int8_with(x32: torch.Tensor, amax: torch.Tensor):
+    scale = (amax / 127.0).clamp_min(1e-8)
     q = torch.clamp(torch.round(x32 / scale), -127, 127)
     return q.to(torch.int8), scale
 
 
 def _q(w: torch.Tensor) -> dict:
+    return _q_with(w, None)
+
+
+def _q_with(w: torch.Tensor, amax: torch.Tensor | None) -> dict:
+    """``_sym_int8`` of ``w`` over dim -2, layer by layer for a stack (the
+    fp32 temporaries of one layer, not of all); ``amax``, when given, is
+    the whole weight's maximum over dim -2, for a shard of it."""
+    def one(x, a):
+        if a is None:
+            return _sym_int8(x, dim=-2)
+        return _int8_with(x.float(), a)
+
     if w.dim() == 3:
-        # layer by layer: the fp32 temporaries of one layer, not of all
-        parts = [_sym_int8(w[i], dim=-2) for i in range(w.shape[0])]
-        return {"int8": torch.stack([p[0] for p in parts]),
-                "scale": torch.stack([p[1] for p in parts])}
-    q, scale = _sym_int8(w, dim=-2)
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((w.shape[0], 1, w.shape[2]), device=w.device)
+        for i in range(w.shape[0]):
+            q[i], scale[i] = one(w[i], None if amax is None else amax[i])
+        return {"int8": q, "scale": scale}
+    q, scale = one(w, amax)
     return {"int8": q, "scale": scale}
 
 
@@ -228,28 +349,93 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _out_width(w) -> int:
+    return (w["int8"] if isinstance(w, dict) else w).shape[-1]
+
+
+def local_heads(params: dict, cfg: ModelConfig, mesh=None
+                ) -> tuple[int, int]:
+    """(query heads, kv heads) this rank computes (cfg's counts without
+    tensor parallelism): see :func:`_head_plan`."""
+    lay = params["layers"]
+    lay = _layer(params, 0) if isinstance(lay, list) else \
+        {n: lay[n] for n in ("wq", "wk")}
+    plan = _head_plan(lay, cfg, mesh)
+    return plan["q"][1] - plan["q"][0], plan["kv"][1] - plan["kv"][0]
+
+
+def _head_plan(lp: dict, cfg: ModelConfig, mesh) -> dict:
+    """Which heads this rank computes. Its wq shard holds the attention
+    output columns [c0, c1) that its wo rows take; it computes the query
+    heads "q" those columns lie in and the kv heads "kv" they read.
+    "gather_q" / "gather_kv" say where its own shards do not hold exactly
+    those heads ("tp" beyond n_heads or n_kv_heads splits a head's
+    columns over ranks): it then gathers the weight's columns, and
+    "cols" keeps its [c0, c1) of the heads' output for wo."""
+    hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    r = parallel.axis_rank(mesh, "tp")
+    w, wk = _out_width(lp["wq"]), _out_width(lp["wk"])
+    c0, c1 = r * w, (r + 1) * w
+    q = (c0 // hd, -(-c1 // hd))
+    kv = (q[0] // G, (q[1] - 1) // G + 1)
+    return {"q": q, "kv": kv, "cols": (c0 - q[0] * hd, c1 - q[0] * hd),
+            "gather_q": c0 % hd != 0 or c1 % hd != 0,
+            "gather_kv": (r * wk, (r + 1) * wk) != (kv[0] * hd, kv[1] * hd)}
+
+
+def _gathered(w, mesh):
+    if isinstance(w, dict):
+        return {k: parallel.gather_last(v, mesh) for k, v in w.items()}
+    return parallel.gather_last(w, mesh, sum_grads=True)
+
+
 def _qkv(h: torch.Tensor, lp: dict, positions: torch.Tensor,
-         cfg: ModelConfig):
-    """Projections + RoPE shared by the cached and uncached layers."""
+         cfg: ModelConfig, mesh=None):
+    """Projections + RoPE shared by the cached and uncached layers, at
+    the heads this rank computes (:func:`_head_plan`)."""
     B, T = h.shape[:2]
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = _matmul(h, lp["wq"]).reshape(B, T, nh, hd)
-    k = _matmul(h, lp["wk"]).reshape(B, T, nkv, hd)
-    v = _matmul(h, lp["wv"]).reshape(B, T, nkv, hd)
+    hd = cfg.head_dim
+    wq, wk, wv = lp["wq"], lp["wk"], lp["wv"]
+    plan = None
+    if parallel.axis_size(mesh, "tp") > 1:
+        plan = _head_plan(lp, cfg, mesh)
+        if plan["gather_q"]:
+            wq = _gathered(wq, mesh)
+        if plan["gather_kv"]:
+            wk, wv = _gathered(wk, mesh), _gathered(wv, mesh)
+    q = _matmul(h, wq).reshape(B, T, -1, hd)
+    k = _matmul(h, wk).reshape(B, T, -1, hd)
+    v = _matmul(h, wv).reshape(B, T, -1, hd)
+    if plan is not None and plan["gather_q"]:
+        q = q[:, :, plan["q"][0]:plan["q"][1]]
+    if plan is not None and plan["gather_kv"]:
+        k, v = (t[:, :, plan["kv"][0]:plan["kv"][1]] for t in (k, v))
     return (_rope(q, positions, cfg.rope_theta),
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _ffn_block(x: torch.Tensor, lp: dict, cfg: ModelConfig):
+def _attn_out(attn: torch.Tensor, lp: dict, cfg: ModelConfig, mesh):
+    """The row-parallel wo over this rank's columns of the heads' output
+    [B, T, heads * head_dim], all-reduced over "tp"."""
+    if parallel.axis_size(mesh, "tp") > 1:
+        plan = _head_plan(lp, cfg, mesh)
+        if plan["gather_q"]:
+            attn = attn[..., plan["cols"][0]:plan["cols"][1]]
+    return parallel.reduce_from(_matmul(attn, lp["wo"]), mesh)
+
+
+def _ffn_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     """Residual + RMSNorm + FFN; returns ``(x, aux)``: the layer's MoE
-    load-balance loss, or 0 for the dense SwiGLU."""
+    load-balance loss, or 0 for the dense SwiGLU. On a mesh, w1 and w3
+    are column-parallel and w2 row-parallel over "tp"."""
     h = _rmsnorm(x, lp["ffn_norm"])
     if cfg.moe_experts > 0:
-        y, aux = moe_ffn(lp, h, cfg.moe)
+        y, aux = moe_ffn(lp, h, cfg.moe, mesh=mesh)
         return x + y, aux
+    h = parallel.copy_to(h, mesh)
     gated = torch.nn.functional.silu(_matmul(h, lp["w1"])) \
         * _matmul(h, lp["w3"])
-    return (x + _matmul(gated, lp["w2"]),
+    return (x + parallel.reduce_from(_matmul(gated, lp["w2"]), mesh),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -260,18 +446,20 @@ def _flash_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
                         window=cfg.attn_window)
-    return o.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return o.transpose(1, 2).reshape(B, T, -1)
 
 
 def decoder_layer(x: torch.Tensor, lp: dict, positions: torch.Tensor,
-                  cfg: ModelConfig, mask: torch.Tensor | None = None):
+                  cfg: ModelConfig, mask: torch.Tensor | None = None,
+                  mesh=None):
     """One transformer block: x [B, S, d] -> (x, aux). ``mask`` [S, S]
     overrides the causal mask on the einsum backend; the flash backend
-    takes only the default causal mask and raises otherwise."""
+    takes only the default causal mask and raises otherwise. ``lp`` holds
+    plain tensors (a rank's shards on ``mesh``)."""
     B, S = x.shape[:2]
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = _rmsnorm(x, lp["attn_norm"])
-    q, k, v = _qkv(h, lp, positions, cfg)
+    hd = cfg.head_dim
+    h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"]), mesh)
+    q, k, v = _qkv(h, lp, positions, cfg, mesh)
     if cfg.attn == "flash":
         if mask is not None:
             raise ValueError(
@@ -279,7 +467,7 @@ def decoder_layer(x: torch.Tensor, lp: dict, positions: torch.Tensor,
                 "use attn='einsum' for custom masks")
         attn = _flash_core(q, k, v, cfg)
     else:
-        reps = nh // nkv
+        reps = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(reps, dim=2)
         v = v.repeat_interleave(reps, dim=2)
         pos = torch.arange(S, device=x.device)
@@ -291,10 +479,17 @@ def decoder_layer(x: torch.Tensor, lp: dict, positions: torch.Tensor,
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (hd ** -0.5)
         scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
-            B, S, nh * hd)
-    x = x + _matmul(attn, lp["wo"])
-    return _ffn_block(x, lp, cfg)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, -1)
+    x = x + _attn_out(attn, lp, cfg, mesh)
+    return _ffn_block(x, lp, cfg, mesh)
+
+
+def _head(x: torch.Tensor, params: dict, mesh) -> torch.Tensor:
+    """Final norm and lm_head: fp32 logits over the whole vocab (gathered
+    from the "tp" ranks' vocab shards on a mesh)."""
+    x = parallel.copy_to(_rmsnorm(x, params["final_norm"]), mesh)
+    logits = _matmul(x, params["lm_head"]).float()
+    return parallel.gather_last(logits, mesh)
 
 
 def forward(params: dict, tokens: torch.Tensor,
@@ -305,17 +500,18 @@ def forward(params: dict, tokens: torch.Tensor,
 
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """tokens [B, S] -> (logits [B, S, vocab] fp32, aux: the mean of
-    the layers' MoE load-balance losses; 0 for dense models)."""
+    the layers' MoE load-balance losses; 0 for dense models). On a mesh
+    the tokens are this rank's rows of the batch (its "dp" shard)."""
+    params, mesh = parallel.localize(params)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     auxs = []
     for i in range(cfg.n_layers):
-        x, aux = decoder_layer(x, _layer(params, i), positions, cfg)
+        x, aux = decoder_layer(x, _layer(params, i), positions, cfg,
+                               mesh=mesh)
         auxs.append(aux)
-    x = _rmsnorm(x, params["final_norm"])
-    logits = _matmul(x, params["lm_head"]).float()
-    return logits, torch.stack(auxs).mean()
+    return _head(x, params, mesh), torch.stack(auxs).mean()
 
 
 # -- loss / train step --------------------------------------------------------
@@ -337,8 +533,19 @@ def train_params(params: dict) -> dict:
     def leaf(w):
         return w.detach().requires_grad_()
 
+    def layer(w, i):
+        """Layer i of a stack: a view; of a DTensor stack, a DTensor over
+        the view of its local shard (the layer axis is never sharded)."""
+        if not parallel.is_dtensor(w):
+            return w[i]
+        from torch.distributed.tensor import Shard
+        pls = [Shard(p.dim - 1) if p.is_shard() else p for p in w.placements]
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(w.to_local()[i], w.device_mesh, pls,
+                                  run_check=False)
+
     n_layers = next(iter(layers.values())).shape[0]
-    per_layer = [{n: leaf(w[i]) for n, w in layers.items()}
+    per_layer = [{n: leaf(layer(w, i)) for n, w in layers.items()}
                  for i in range(n_layers)]
     return {k: per_layer if k == "layers" else leaf(w)
             for k, w in params.items()}
@@ -415,24 +622,42 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 3e-4,
     ``train_step(params, opt_state, tokens) -> (params, opt_state,
     loss)``. The step updates ``params`` and ``opt_state`` in place (and
     returns them, so callers port unchanged) and frees the gradients
-    after the update, so they do not live through the next forward."""
-    tx = AdamW(learning_rate)
+    after the update, so they do not live through the next forward.
 
-    def train_step(params, opt_state, tokens):
-        loss = loss_fn(params, tokens, cfg, forward_fn=forward_fn)
+    Sharded (a tree of DTensors on a mesh): ``tokens`` are this rank's
+    rows of the global batch (:func:`batch_spec`), the gradients are
+    averaged over "dp" before the update (every leaf is replicated over
+    "dp"), AdamW steps the local shards, and the loss returned is the
+    global batch's mean, on every rank."""
+    tx = AdamW(learning_rate)
+    return tx, _sharded_step(
+        lambda params, tokens: loss_fn(params, tokens, cfg,
+                                       forward_fn=forward_fn))
+
+
+def _sharded_step(loss_of):
+    """The step shared by both families: ``loss_of(params, *batch)`` is
+    this rank's loss over its rows of the batch."""
+    def train_step(params, opt_state, *batch):
+        loss = loss_of(params, *batch)
         loss.backward()
+        mesh = parallel.mesh_of(params)
+        parallel.dp_mean_grads(param_leaves(params), mesh)
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, loss.detach()
+        return params, opt_state, parallel.mean_over(loss.detach(), mesh)
 
-    return tx, train_step
+    return train_step
 
 
 # -- KV-cache forward (serving path) ------------------------------------------
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  rolling: bool = False, device=None) -> dict:
-    """Zeroed per-layer K/V buffers ``[L, B, max_len, n_kv, head_dim]``.
+                  rolling: bool = False, device=None,
+                  kv_heads: int | None = None) -> dict:
+    """Zeroed per-layer K/V buffers ``[L, B, max_len, n_kv, head_dim]``;
+    ``kv_heads`` is n_kv when given (a tp rank's share, see
+    :func:`local_heads`), else ``cfg.n_kv_heads``.
 
     With ``cfg.kv_cache_dtype == "int8"`` the buffers hold int8 plus
     per-(token, kv head) fp32 scales "ks"/"vs" ``[L, B, max_len, n_kv,
@@ -441,7 +666,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``[max_len]`` records each slot's global position (-1 = never
     written) and the mask reads it.
     """
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     if rolling:
         if cfg.attn_window is None:
             raise ValueError("rolling cache requires cfg.attn_window")
@@ -474,6 +700,8 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
                    prefill_from_zero: bool | None = None,
                    write_rows: torch.Tensor | None = None):
     """Incremental forward: attend the T new tokens against the KV cache.
+    On a mesh (a DTensor tree) the cache holds this rank's kv heads
+    (``init_kv_cache(..., kv_heads=local_heads(params, cfg)[1])``).
 
     tokens [B, T] occupy positions ``pos_offset .. pos_offset+T-1``.
     ``pos_offset`` is an int shared by every row, or a tensor [B] with
@@ -498,8 +726,10 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     ``write_rows`` [B] bool: rows where False leave the cache (and ring
     positions) untouched; their logits are computed and meaningless.
     """
+    params, mesh = parallel.localize(params)
     B, T = tokens.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = local_heads(params, cfg, mesh)
     reps = nh // nkv
     dev = tokens.device
     M = cache["k"].shape[2]
@@ -585,8 +815,8 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = _rmsnorm(x, lp["attn_norm"])
-        q, k, v = _qkv(h, lp, positions, cfg)
+        h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"]), mesh)
+        q, k, v = _qkv(h, lp, positions, cfg, mesh)
         ck, cv = cache["k"][i], cache["v"][i]
         if int8_cache:
             kq8, ks = _kv_quant(k)
@@ -623,13 +853,12 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
             probs = probs.to(x.dtype)
             attn = torch.einsum("bgrtm,bmgd->btgrd", probs, vd)
             attn_flat = attn.reshape(B, T, nh * hd)
-        x = x + _matmul(attn_flat, lp["wo"])
-        x, _aux = _ffn_block(x, lp, cfg)  # aux only matters in training
+        x = x + _attn_out(attn_flat, lp, cfg, mesh)
+        # aux only matters in training
+        x, _aux = _ffn_block(x, lp, cfg, mesh)
     if rolling:
         cache["pos"].copy_(new_pos)
-    x = _rmsnorm(x, params["final_norm"])
-    logits = _matmul(x, params["lm_head"]).float()
-    return logits, cache
+    return _head(x, params, mesh), cache
 
 
 def greedy_decode_kv(params: dict, prompt: torch.Tensor, steps: int,
@@ -642,6 +871,8 @@ def greedy_decode_kv(params: dict, prompt: torch.Tensor, steps: int,
     in window-sized chunks."""
     B, S = prompt.shape
     dev = prompt.device
+    local, mesh = parallel.localize(params)
+    kv_heads = local_heads(local, cfg, mesh)[1]
     total = S + steps
     buf = torch.zeros((B, total), dtype=torch.long, device=dev)
     buf[:, :S] = prompt
@@ -652,12 +883,12 @@ def greedy_decode_kv(params: dict, prompt: torch.Tensor, steps: int,
             raise ValueError("rolling decode requires cfg.attn_window")
         W = cfg.attn_window
         cache = init_kv_cache(cfg, B, max(min(2 * W, total), W),
-                              rolling=True, device=dev)
+                              rolling=True, device=dev, kv_heads=kv_heads)
         for off in range(0, S, W):
             logits, cache = forward_cached(
                 params, prompt[:, off:off + W], cache, off, cfg)
     else:
-        cache = init_kv_cache(cfg, B, total, device=dev)
+        cache = init_kv_cache(cfg, B, total, device=dev, kv_heads=kv_heads)
         logits, cache = forward_cached(params, prompt, cache, 0, cfg,
                                        prefill_from_zero=True)
     tok = logits[:, -1].argmax(dim=-1)

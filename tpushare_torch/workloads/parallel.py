@@ -1,0 +1,617 @@
+"""Data, tensor and expert parallelism for the port: the ranks, the mesh,
+the placements and the explicit collectives of the sharded paths.
+
+The reference lays its weights over a ``jax.sharding.Mesh`` with
+``PartitionSpec`` trees (``model.param_specs``, ``quant_specs``,
+``moe.moe_param_specs``, ``vit.vit_param_specs``) and lets XLA insert the
+collectives; one controller drives every device. The port runs one
+process per rank instead:
+
+- :class:`P` is the port's spec type: per tensor dimension, the mesh
+  axis it is sharded over or None. :func:`placements` turns one into
+  DTensor placements on a ``DeviceMesh`` whose dims carry the reference's
+  axis names, ``("dp", "tp")`` or ``("dp", "tp", "ep")``.
+- The state is held as DTensors (:func:`distribute`, :func:`local_shard`),
+  which ``torch.distributed.checkpoint`` saves shard by shard and
+  reshards on load. The model computes on their local shards
+  (:func:`localize`) with explicit collectives, never through DTensor op
+  dispatch, so the CUDA kernels always get plain local tensors.
+- The Megatron pair: :func:`copy_to` (identity forward, all-reduce of the
+  gradient) before a column-parallel product, :func:`reduce_from`
+  (all-reduce forward, identity backward) after a row-parallel one;
+  :func:`gather_last` for vocab-sharded logits; :func:`dp_mean_grads`.
+- Every collective on the hot path is an ``all_reduce`` or a
+  ``broadcast``, the two calls gloo carries for CUDA tensors, so ranks
+  that share one card can run. Activations are reduced in fp32.
+- :func:`transport` is the one rule for the backend: NCCL when every rank
+  has a card of its own, gloo when ranks share one (or run on the CPU).
+- :func:`run_ranks` starts ranks as processes of their own, each with the
+  process group set up, and returns what each returned.
+"""
+
+from __future__ import annotations
+
+import math
+import multiprocessing
+import os
+import socket
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+
+AXES = ("dp", "tp")
+MOE_AXES = ("dp", "tp", "ep")
+
+
+class P(tuple):
+    """A partition spec: per tensor dim, the mesh axis name it is sharded
+    over, or None (replicated along that dim)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+# -- trees --------------------------------------------------------------------
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (and of the trees
+    in ``rest``, which share the first tree's structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+# -- mesh and placements ------------------------------------------------------
+
+def axis_size(mesh, axis: str) -> int:
+    """Ranks along ``axis``; 1 without a mesh or for an axis it lacks."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis: str) -> int:
+    if axis_size(mesh, axis) == 1:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def placements(spec: P, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
+    mesh dim whose axis names tensor dim d, ``Replicate()`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    unknown = [a for a in spec if a is not None and a not in names]
+    if unknown:
+        raise ValueError(f"spec {spec} names axes {unknown} that the mesh "
+                         f"{names} lacks")
+    return [Shard(spec.index(n)) if n in spec else Replicate()
+            for n in names]
+
+
+def spec_of(t) -> P:
+    """The spec a DTensor's placements stand for (None per replicated
+    dim)."""
+    axes = [None] * t.dim()
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            axes[pl.dim] = name
+    return P(*axes)
+
+
+def shard_range(size: int, mesh, axis: str | None) -> tuple[int, int]:
+    """[lo, hi) of this rank's shard of a dim of ``size`` over ``axis``."""
+    n = axis_size(mesh, axis) if axis else 1
+    if size % n:
+        raise ValueError(f"dim of {size} does not divide over {n} "
+                         f"{axis!r} ranks")
+    part = size // n
+    r = axis_rank(mesh, axis) if axis else 0
+    return r * part, (r + 1) * part
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t`` under ``spec`` (a view)."""
+    if len(spec) != t.dim():
+        raise ValueError(f"spec {spec} for a {t.dim()}-d tensor")
+    for d, axis in enumerate(spec):
+        if axis is not None:
+            lo, hi = shard_range(t.shape[d], mesh, axis)
+            t = t.narrow(d, lo, hi - lo)
+    return t
+
+
+def as_dtensor(local: torch.Tensor, spec: P, mesh):
+    """A DTensor over ``local`` (its storage, no copy, no communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False)
+
+
+def distribute(tree, specs, mesh):
+    """A tree of full tensors (the same on every rank) as DTensors holding
+    this rank's shards, copied out so the full tensors can be freed."""
+    return tree_map(
+        lambda t, s: as_dtensor(local_shard(t, s, mesh).contiguous().clone(),
+                                s, mesh), tree, specs)
+
+
+def is_dtensor(t) -> bool:
+    # no DTensor exists before torch.distributed.tensor is loaded, and
+    # loading it (a few seconds) is for the sharded paths alone
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and isinstance(t, module.DTensor)
+
+
+def localize(tree, mesh=None):
+    """``(tree of local tensors, mesh)``: each DTensor leaf replaced by its
+    local shard (``to_local``, so gradients flow back to the DTensor
+    leaf), and the mesh they live on; ``mesh`` is kept for a plain tree."""
+    found = []
+
+    def local(t):
+        if isinstance(t, torch.Tensor) and is_dtensor(t):
+            found.append(t.device_mesh)
+            return t.to_local()
+        return t
+
+    out = tree_map(local, tree)
+    return out, (found[0] if found else mesh)
+
+
+def mesh_of(tree):
+    for t in leaves(tree):
+        if isinstance(t, torch.Tensor) and is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+# -- collectives --------------------------------------------------------------
+
+def _reduce_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.float().contiguous()   # a copy whenever x is not fp32
+    if y.data_ptr() == x.data_ptr():
+        y = y.clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_fp32(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """Identity forward, all-reduce of the gradient over ``axis`` in the
+    backward: where a replicated activation enters work that each rank
+    does on its own shard (a column-parallel product, its experts)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyTo.apply(x, mesh.get_group(axis))
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """All-reduce (sum, in fp32) forward, identity backward: after a
+    row-parallel product, whose per-rank partial sums make the output."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh.get_group(axis))
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, r, sum_grads):
+        ctx.r, ctx.width, ctx.group, ctx.sum = r, x.shape[-1], group, sum_grads
+        buf = x.new_zeros((*x.shape[:-1], n * x.shape[-1]),
+                          dtype=torch.float32)
+        buf.narrow(-1, r * x.shape[-1], x.shape[-1]).copy_(x)
+        dist.all_reduce(buf, group=group)
+        return buf.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum:
+            g = _reduce_fp32(g, ctx.group)
+        return g.narrow(-1, ctx.r * ctx.width, ctx.width), None, None, None, \
+            None
+
+
+def gather_last(x: torch.Tensor, mesh, axis: str = "tp",
+                sum_grads: bool = False) -> torch.Tensor:
+    """The full last dim of a tensor sharded on it over ``axis``: an
+    all-reduce of a zero-filled buffer holding this rank's shard, so it
+    is exact. The backward keeps this rank's slice of the gradient: as it
+    is where every rank computes the same loss from the result (the
+    vocab-sharded logits), summed over the ranks first with
+    ``sum_grads`` (each rank uses its own part of the result)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    return _GatherLast.apply(x, mesh.get_group(axis), n,
+                             axis_rank(mesh, axis), sum_grads)
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_fp32(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Differentiable sum over ``axis`` whose backward sums the gradients
+    too: for a statistic every rank of ``axis`` computes the same loss
+    from (the global MoE router means)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _SumBoth.apply(x, mesh.get_group(axis))
+
+
+def gather_counts(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """[n, *x.shape]: every rank's ``x`` along ``axis``, in rank order (an
+    all-reduce of a zero-filled buffer; no gradient)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x[None]
+    buf = x.new_zeros((n, *x.shape))
+    buf[axis_rank(mesh, axis)] = x
+    dist.all_reduce(buf, group=mesh.get_group(axis))
+    return buf
+
+
+def mean_over(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
+    """The mean of ``x`` over ``axis`` (no gradient)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    return _reduce_fp32(x.detach(), mesh.get_group(axis)) / n
+
+
+BUCKET = 1 << 26   # elements in one fp32 all-reduce of gradients
+
+
+def dp_mean_grads(params: list, mesh) -> None:
+    """Average the gradients of ``params`` over "dp", in place: every leaf
+    is replicated over "dp" (the batch is what dp shards). Local
+    gradients are summed in fp32 buckets of at most ``BUCKET`` elements."""
+    n = axis_size(mesh, "dp")
+    if n == 1:
+        return
+    group = mesh.get_group("dp")
+    grads = [(p.grad.to_local() if is_dtensor(p.grad) else p.grad)
+             for p in params if p.grad is not None]
+    i = 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and (j == i or size + grads[j].numel() <= BUCKET):
+            size += grads[j].numel()
+            j += 1
+        flat = torch.cat([g.reshape(-1).float() for g in grads[i:j]])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        off = 0
+        for g in grads[i:j]:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        i = j
+
+
+# -- drawing weights shard by shard -------------------------------------------
+
+DRAW_CHUNK = 1 << 26   # elements of one piece of a large CUDA draw
+# torch launches a draw whose fp32 output spans more bytes than an int32
+# indexes as several launches (TensorIterator's 32-bit split)
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _grid_stride(n: int, dev) -> int:
+    """Threads of torch's CUDA ``normal_`` launch for ``n`` elements:
+    blocks of 256, at most as many as the card's SMs hold at once."""
+    props = torch.cuda.get_device_properties(dev)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // 256
+    return 256 * min(props.multi_processor_count * per_sm, -(-n // 256))
+
+
+def _philox_step(n: int, dev) -> int:
+    """The Philox offset one launch over ``n`` elements reserves: four per
+    round of the grid-stride loop (each thread draws four a round)."""
+    return ((n - 1) // (4 * _grid_stride(n, dev)) + 1) * 4
+
+
+def _launches(n: int) -> list[tuple[int, int]]:
+    """[lo, hi) of each launch torch makes for a draw of ``n`` fp32
+    elements: halves (the first ``n // 2``), again and again, until a
+    launch's last byte is within int32 reach, in address order."""
+    if 1 + (n - 1) * 4 <= _INT32_MAX:
+        return [(0, n)]
+    half = n // 2
+    return _launches(half) + [(half + lo, half + hi)
+                              for lo, hi in _launches(n - half)]
+
+
+def normal_rows(shape: tuple, generator, chunk: int = DRAW_CHUNK):
+    """Yield ``(row0, rows)``: ``torch.randn(shape, generator=generator)``
+    (fp32, on the generator's device) as ``[n, shape[-1]]`` blocks of its
+    rows, bitwise the one draw's values, leaving the generator where the
+    one draw leaves it. On the CPU, or for up to ``chunk`` elements, that
+    is the one draw. A larger CUDA draw is made ``chunk`` elements at a
+    time, following torch's kernel (``ATen/native/cuda/
+    DistributionTemplates.h``): a draw over more than 2**31 bytes is
+    several launches (:func:`_launches`), after the whole draw has
+    reserved its own offset; within a launch, element i takes the Philox
+    offset ``4 * (i // (4 * threads))`` past the launch's, so a piece
+    that starts at a multiple of ``4 * threads`` and launches as many
+    threads is that part of the launch with the offset moved on. No more
+    than a piece of fp32 exists at a time, where the one draw holds the
+    whole stack (7.0 GiB for llama-8b's w1). :func:`check_normal_rows`
+    holds this against one draw on the card."""
+    n, C = math.prod(shape), shape[-1]
+    dev = generator.device
+    if dev.type != "cuda" or n <= chunk:
+        yield 0, torch.randn(shape, generator=generator,
+                             device=dev).reshape(-1, C)
+        return
+    launches = _launches(n)
+    if any(lo % C for lo, _ in launches):
+        raise ValueError(f"a draw of {tuple(shape)}: torch's launches "
+                         "split its rows")
+    offset = generator.get_offset()
+    if len(launches) > 1:
+        offset += _philox_step(n, dev)
+    for lo, hi in launches:
+        m = hi - lo
+        stride = _grid_stride(m, dev)
+        align = 4 * stride
+        unit = math.lcm(align, C)
+        step = max(unit, chunk // unit * unit)
+        for start in range(0, m, step):
+            size = min(step, m - start)
+            generator.set_offset(offset + 4 * (start // align))
+            piece = torch.randn(max(size, stride), generator=generator,
+                                device=dev)
+            yield (lo + start) // C, piece[:size].view(-1, C)
+        offset += _philox_step(m, dev)
+    generator.set_offset(offset)
+
+
+_CHECKED: set = set()
+
+
+def check_normal_rows(dev) -> None:
+    """Hold :func:`normal_rows`' pieces bitwise against one draw on
+    ``dev`` (once per device and process), at a size torch splits into
+    two launches; raises if torch's kernel no longer numbers its Philox
+    offsets as :func:`normal_rows` assumes. Holds about 2.4 GB while it
+    runs."""
+    dev = torch.device(dev)
+    if dev.type != "cuda" or dev in _CHECKED:
+        return
+    shape = ((1 << 29) // 512 + (1 << 17), 512)
+    whole = torch.Generator(device=dev).manual_seed(1234)
+    want = torch.randn(shape, generator=whole, device=dev)
+    parts = torch.Generator(device=dev).manual_seed(1234)
+    same = all(torch.equal(rows, want[r0:r0 + rows.shape[0]])
+               for r0, rows in normal_rows(shape, parts))
+    del want
+    torch.cuda.empty_cache()
+    if not same or parts.get_offset() != whole.get_offset():
+        raise RuntimeError("piecewise CUDA draws differ from one draw: "
+                           "torch's normal_ kernel changed its launch")
+    _CHECKED.add(dev)
+
+
+def local_shape(shape: tuple, spec: P | None, mesh) -> tuple:
+    if spec is None:
+        return tuple(shape)
+    return tuple(hi - lo for lo, hi in
+                 (shard_range(s, mesh, a) for s, a in zip(shape, spec)))
+
+
+def draw(shape: tuple, generator, mult: float, dtype, spec: P | None = None,
+         mesh=None, amax: bool = False, device=None, chunk: int = DRAW_CHUNK):
+    """This rank's shard (under ``spec``; all of it without a mesh) of
+    ``(torch.randn(shape, generator=generator) * mult).to(dtype)``, drawn
+    piece by piece (:func:`normal_rows`) on a mesh, and with ``amax`` the
+    fp32 maximum of |value| over dim -2 (keepdim) of every column and leading
+    index this rank holds, taken over all rows, this rank's or not: what a
+    per-output-channel int8 scale of the whole weight needs. Returns
+    ``(shard, amax or None)``. ``generator`` None allocates the shard on
+    ``device`` without drawing (a target to load into)."""
+    own_shape = local_shape(shape, spec, mesh)
+    dev = generator.device if generator is not None else torch.device(
+        device or "cpu")
+    if generator is not None and mesh is None and not amax:
+        # all of it: the one draw, which the pieces must equal
+        x = torch.randn(shape, generator=generator, device=dev)
+        return x.mul_(mult).to(dtype), None
+    own = torch.empty(own_shape, dtype=dtype, device=dev)
+    red = None
+    if amax:
+        red = torch.zeros((*own_shape[:-2], 1, own_shape[-1]),
+                          dtype=torch.float32, device=dev)
+    if generator is None:
+        return own, red
+    if generator.device.type == "cuda" and math.prod(shape) > chunk:
+        check_normal_rows(generator.device)
+    lead = tuple(shape[:-1])
+    ranges = [shard_range(s, mesh, a) if spec is not None and a else (0, s)
+              for s, a in zip(shape, spec or (None,) * len(shape))]
+    c0, c1 = ranges[-1]
+    own_rows = own.view(-1, own_shape[-1])
+    for row0, rows in normal_rows(shape, generator, chunk):
+        vals = rows.mul_(mult).to(dtype)
+        # each row's index along every leading dim; a row is this rank's
+        # when every index is in its range, and feeds its amax when every
+        # index but the row dim's (the one the scale reduces) is
+        idx = torch.arange(row0, row0 + rows.shape[0], device=dev)
+        subs = []
+        for size in reversed(lead):
+            subs.append(idx % size)
+            idx = idx // size
+        subs.reverse()
+        mine = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+        held = mine.clone()
+        local = torch.zeros_like(idx)    # row of this rank's shard
+        group = torch.zeros_like(idx)    # row of this rank's amax
+        for d, (sub, (lo, hi)) in enumerate(zip(subs, ranges[:-1])):
+            inside = (sub >= lo) & (sub < hi)
+            mine &= inside
+            local = local * (hi - lo) + (sub - lo)
+            if d < len(lead) - 1:
+                held &= inside
+                group = group * (hi - lo) + (sub - lo)
+        cols = vals[:, c0:c1]
+        own_rows[local[mine]] = cols[mine]
+        if amax:
+            sel, gi = cols[held].float().abs(), group[held]
+            red.view(-1, red.shape[-1]).scatter_reduce_(
+                0, gi[:, None].expand(-1, sel.shape[1]), sel, "amax")
+    return own, red
+
+
+# -- ranks --------------------------------------------------------------------
+
+def transport(device_type: str, world: int) -> str:
+    """NCCL when every rank has a card of its own, gloo when ranks share
+    one card or run on the CPU (NCCL refuses two ranks on one GPU; gloo
+    carries CUDA tensors for broadcast and all_reduce)."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device_type: str, rank: int) -> torch.device:
+    """The card of ``rank``: its own where there are enough, else the one
+    they share (rank modulo the visible cards)."""
+    if device_type != "cuda":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_rank(rank: int, world: int, addr: str, device_type: str,
+              device: torch.device | None = None) -> str:
+    """Join the process group at ``addr`` (``tcp://localhost:<port>``) as
+    ``rank`` of ``world``, on ``device`` (default :func:`rank_device`);
+    returns the backend."""
+    backend = transport(device_type, world)
+    if device_type == "cuda":
+        torch.cuda.set_device(device or rank_device(device_type, rank))
+    dist.init_process_group(backend, init_method=addr, world_size=world,
+                            rank=rank)
+    return backend
+
+
+def make_mesh(device_type: str, shape: tuple, names: tuple = AXES):
+    """A ``DeviceMesh`` of ``shape`` over the world's ranks in rank order,
+    with the reference's axis names."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"mesh {shape} over {dist.get_world_size()} ranks")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
+
+
+def most_square(n: int) -> tuple[int, int]:
+    """(a, b) with a * b == n, a <= b, a as large as it can be."""
+    for cand in range(int(n ** 0.5), 0, -1):
+        if n % cand == 0:
+            return cand, n // cand
+    return 1, n
+
+
+def _rank_main(fn, rank, world, addr, device_type, args, results, env):
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    try:
+        init_rank(rank, world, addr, device_type)
+        out = fn(*args)
+        results.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 -- the parent re-raises it
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, device_type: str = "cpu",
+              timeout: float = 600.0, env: dict | None = None) -> list:
+    """Run ``fn(*args)`` in ``world`` new processes, one per rank, each
+    inside the process group (``dist`` initialised, backend by
+    :func:`transport`), and return the ranks' results in rank order.
+    ``fn`` must be importable (a module-level function of a module that
+    does not import JAX). A rank that raises fails the call with its
+    traceback; so does one that has not answered within ``timeout``."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    addr = f"tcp://localhost:{free_port()}"
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world, addr, device_type, args,
+                               results, env or {}))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: dict = {}
+    errors = []
+    try:
+        import queue as _queue
+        while len(got) + len(errors) < world:
+            try:
+                rank, status, out = results.get(timeout=timeout)
+            except _queue.Empty:
+                missing = sorted(set(range(world)) - set(got))
+                raise TimeoutError(f"ranks {missing} gave no result in "
+                                   f"{timeout} s") from None
+            if status == "ok":
+                got[rank] = out
+            else:
+                errors.append(f"rank {rank}:\n{out}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError("a rank failed:\n" + "\n".join(errors))
+    return [got[r] for r in range(world)]

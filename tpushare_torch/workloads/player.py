@@ -23,10 +23,15 @@ The MoE presets (``llama-moe-tiny``) train and run forward on one card.
 every ``--ckpt-every`` steps through
 :class:`~tpushare_torch.workloads.checkpoint.TrainCheckpointer`; a
 resumed run finishes what is left of ``--steps`` (resumed at step 2 of
-``--steps 3``, it runs one step). As in the reference it supports dense
-presets only: with an MoE preset it exits (``SystemExit``), since MoE
-state shards over "ep" (call ``TrainCheckpointer`` directly on one
-process).
+``--steps 3``, it runs one step). Run as the ranks of a process group
+(``torch.distributed`` already initialised, or ``RANK`` / ``WORLD_SIZE``
+/ ``MASTER_ADDR`` / ``MASTER_PORT`` in the environment, as ``torchrun``
+sets them), each rank trains its shards of the state on the ``(1, n)``
+dp x tp mesh over the n ranks, as the reference lays its state over all
+its devices, and every rank writes its own shards. As in the reference
+it supports dense presets only: with an MoE preset it exits
+(``SystemExit``), since MoE state shards over "ep" (call
+``TrainCheckpointer`` with a mesh of your own).
 
 Not ported yet, and refused with ``NotImplementedError``: ``--sp ring``
 and ``--multihost`` (ROADMAP.md Queue 1 item 13, the sharded slice).
@@ -114,6 +119,27 @@ def _refuse_unported(args) -> None:
             "(ROADMAP.md Queue 1 item 13, the sharded slice)")
 
 
+def _rank_mesh(device_type: str):
+    """The reference's ``(1, n)`` dp x tp mesh over this process's n
+    ranks, or None for one process. Joins the process group from the
+    launcher's environment (``torchrun``'s variables) when it is not
+    joined yet."""
+    import torch.distributed as dist
+    from tpushare_torch.workloads import parallel
+    if not dist.is_initialized():
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world <= 1:
+            return None
+        rank = int(os.environ["RANK"])
+        parallel.init_rank(rank, world, "tcp://{}:{}".format(
+            os.environ.get("MASTER_ADDR", "localhost"),
+            os.environ["MASTER_PORT"]), device_type)
+    world = dist.get_world_size()
+    if world == 1:
+        return None
+    return parallel.make_mesh(device_type, (1, world))
+
+
 def run(argv: list[str] | None = None, return_state: bool = False) -> dict:
     """Parse ``argv`` and run the player. Returns ``{"device", "mode",
     "start_step", "steps", "step_s", "losses", "resume_s", "save_s"}``:
@@ -153,6 +179,11 @@ def run(argv: list[str] | None = None, return_state: bool = False) -> dict:
 
     from tpushare_torch.workloads import resolve_device
     device = resolve_device(args.device)
+    # a sharded checkpointed trainer joins its ranks first: that picks
+    # each rank's card
+    mesh = _rank_mesh(device.type) if args.ckpt_dir else None
+    if mesh is not None:
+        device = resolve_device(device.type)
     if device.type == "cuda":
         torch.cuda.set_device(device)
         fraction = apply_memory_fraction()
@@ -174,7 +205,8 @@ def run(argv: list[str] | None = None, return_state: bool = False) -> dict:
             from tpushare_torch.workloads.checkpoint import TrainCheckpointer
             ckpt = TrainCheckpointer(args.ckpt_dir)
             t_resume = time.perf_counter()
-            params, opt_state, start = ckpt.resume_or_init(cfg, tx, gen)
+            params, opt_state, start = ckpt.resume_or_init(cfg, tx, gen,
+                                                           mesh=mesh)
             resume_s = time.perf_counter() - t_resume
             if start:
                 print(f"resumed from step {start} ({args.ckpt_dir})",

@@ -10,18 +10,33 @@ on a machine without CUDA raises instead of falling back.
 a smoke script can run ``httpd.serve_forever`` in a thread;
 :func:`main` is the command line.
 
-MoE presets serve without ``--engine``, through ``greedy_decode_kv`` on
-one card; ``--engine`` with an MoE preset is a usage error, as in the
-reference (capacity routing couples the slots of a batch). Not ported
-yet: tensor and expert parallelism (``--tp`` above 1, ROADMAP.md Queue 1
-item 12), which raises NotImplementedError.
+MoE presets serve without ``--engine``, through ``greedy_decode_kv``;
+``--engine`` with an MoE preset is a usage error, as in the reference
+(capacity routing couples the slots of a batch).
+
+``--tp N`` (default: the visible cards, as the reference lays ``tp``
+over its devices; one on the CPU) serves one replica from N ranks, one
+process each, which this process starts itself: rank 0 is this process
+and owns HTTP. The weights shard Megatron-style over "tp" (MoE presets:
+the experts over "ep", on the largest divisor of N that divides the
+experts, the rest to "tp"), each rank drawing the tp=1 replica's weights
+and keeping its shard, so the replica computes what the tp=1 one does.
+Rank 0 serialises the requests and broadcasts each (prompt tokens and
+steps) to the other ranks, and every rank runs ``greedy_decode_kv`` in
+lockstep. The ranks' cards follow :func:`compose_mesh_devices` over the
+granted box (``TPUSHARE_PLACEMENT_BOX``); ranks that outnumber the cards
+share them (the transport is then gloo, see
+:func:`tpushare_torch.workloads.parallel.transport`). ``--engine`` with
+``--tp`` above 1 raises NotImplementedError (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import multiprocessing
 import os
 import queue
 import sys
@@ -32,6 +47,89 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from tpushare_torch.workloads.migrate import _pod_name
+
+
+def compose_mesh_devices(devices, box_label, axes_shape):
+    """Order ``devices`` into a physical-adjacency-aligned device array
+    of ``axes_shape`` (e.g. ``(1, tp)`` or ``(1, tp, ep)``): the port's
+    copy of the reference's function, which serve uses to give each rank
+    its card.
+
+    ``devices`` are in the grant's order: ascending chip ids, row-major
+    over the granted box the device plugin reports via
+    ``TPUSHARE_PLACEMENT_BOX`` (``box_label``, "2x2" form). When the
+    box's non-trivial dims match the non-trivial logical axes, the devices
+    are reshaped over the box and the box axes transposed onto the
+    logical axes, so each logical axis walks a physical line; one logical
+    axis over a multi-axis box walks it boustrophedon. Any mismatch (no
+    label, scatter grant, incongruent shapes) degrades to the plain
+    row-major reshape. Returns nested lists of ``axes_shape``.
+    """
+    n = 1
+    for d in axes_shape:
+        n *= d
+    devs = list(devices[:n])
+    if len(devs) < n or not box_label:
+        return devs if len(axes_shape) == 1 else _reshape(devs, axes_shape)
+    try:
+        box = tuple(int(p) for p in str(box_label).lower().split("x"))
+    except ValueError:
+        return _reshape(devs, axes_shape)
+    vol = 1
+    for d in box:
+        vol *= d
+    nt_box = [d for d in box if d > 1]
+    nt_axes = [d for d in axes_shape if d > 1]
+    if vol != n or any(d <= 0 for d in box):
+        return _reshape(devs, axes_shape)
+    strides = []
+    acc = 1
+    for d in reversed(nt_box):
+        strides.append(acc)
+        acc *= d
+    strides = list(reversed(strides))
+    if sorted(nt_box) != sorted(nt_axes):
+        if len(nt_axes) == 1 and len(nt_box) > 1:
+            # one logical axis over a multi-axis box: boustrophedon, so
+            # consecutive ring members are always one hop apart
+            ordered = []
+            for c in itertools.product(*[range(d) for d in nt_box]):
+                eff = []
+                for ax, v in enumerate(c):
+                    if ax and sum(eff) % 2:
+                        v = nt_box[ax] - 1 - v
+                    eff.append(v)
+                ordered.append(devs[sum(v * s
+                                        for v, s in zip(eff, strides))])
+            return _reshape(ordered, axes_shape)
+        return _reshape(devs, axes_shape)
+    # congruent: index the flat (row-major over box) list by box coords,
+    # read it out with the box axes permuted onto the logical axes order
+    for perm in itertools.permutations(range(len(nt_box))):
+        if [nt_box[p] for p in perm] == nt_axes:
+            ordered = [
+                devs[sum(c[i] * strides[perm[i]]
+                         for i in range(len(perm)))]
+                for c in itertools.product(*[range(d) for d in nt_axes])]
+            return _reshape(ordered, axes_shape)
+    return _reshape(devs, axes_shape)
+
+
+def _reshape(flat, shape):
+    """Row-major nested-list reshape."""
+    if len(shape) == 1:
+        return list(flat)
+    sub = 1
+    for d in shape[1:]:
+        sub *= d
+    return [_reshape(flat[i * sub:(i + 1) * sub], shape[1:])
+            for i in range(shape[0])]
+
+
+def _flatten(nested) -> list:
+    if not isinstance(nested, list):
+        return [nested]
+    return [x for item in nested for x in _flatten(item)]
 
 
 class _EngineFrontend:
@@ -219,7 +317,260 @@ class _EngineFrontend:
                        "server shutting down (request interrupted)")
 
 
-# -- live-migration seam -------------------------------------------------------
+# -- tensor-parallel replica --------------------------------------------------
+# rank 0 broadcasts [op, B, S, steps] on the model's device, then for a
+# decode the [B, S] prompt; the other ranks follow in _rank_loop
+_STOP, _DECODE, _STATS, _RESET, _PREFILL = 0, 1, 2, 3, 4
+
+
+def tp_layout(cfg, tp: int) -> tuple[tuple, tuple]:
+    """The replica's mesh over ``tp`` ranks: ``(1, tp)`` over ("dp",
+    "tp"); for MoE presets ``(1, tp / ep, ep)`` over ("dp", "tp", "ep")
+    with ep the largest divisor of ``tp`` that divides the experts (the
+    reference's rule)."""
+    from tpushare_torch.workloads import parallel
+    if cfg.moe_experts > 0:
+        ep = max(c for c in range(1, min(tp, cfg.moe_experts) + 1)
+                 if tp % c == 0 and cfg.moe_experts % c == 0)
+        return (1, tp // ep, ep), parallel.MOE_AXES
+    return (1, tp), parallel.AXES
+
+
+def _rank_stats(device) -> list[float]:
+    """[K1 launches, K4 launches, peak and current bytes allocated]."""
+    from tpushare_torch.kernels import flash
+    mem = (torch.cuda.max_memory_allocated(device),
+           torch.cuda.memory_allocated(device)) \
+        if device.type == "cuda" else (0, 0)
+    return [flash.LAUNCHES, flash.LAUNCHES_PIPELINED, *mem]
+
+
+def _reset_stats(device) -> None:
+    from tpushare_torch.kernels import flash
+    flash.LAUNCHES = flash.LAUNCHES_PIPELINED = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _collect_stats(device) -> list[dict]:
+    """Every rank's :func:`_rank_stats`, in rank order (collective)."""
+    import torch.distributed as dist
+    buf = torch.zeros((dist.get_world_size(), 4), dtype=torch.float64,
+                      device=device)
+    buf[dist.get_rank()] = torch.tensor(_rank_stats(device),
+                                        dtype=torch.float64)
+    dist.all_reduce(buf)
+    keys = ("flash_fwd", "flash_fwd_pipelined", "max_memory_allocated",
+            "memory_allocated")
+    return [{k: int(v) for k, v in zip(keys, row)} for row in buf.tolist()]
+
+
+class TPReplica:
+    """Rank 0's side of a tensor-parallel replica: one call at a time,
+    each broadcast to the other ranks, which run the same decode in
+    lockstep. ``stop`` ends the ranks and leaves the process group."""
+
+    def __init__(self, decode, device, procs):
+        self._decode = decode
+        self.device = device
+        self._procs = procs
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def _header(self, op, B=0, S=0, steps=0):
+        import torch.distributed as dist
+        hdr = torch.tensor([op, B, S, steps], dtype=torch.long,
+                           device=self.device)
+        dist.broadcast(hdr, src=0)
+
+    def decode(self, tokens: torch.Tensor, steps: int) -> torch.Tensor:
+        import torch.distributed as dist
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("server shutting down")
+            B, S = tokens.shape
+            self._header(_DECODE, B, S, steps)
+            tokens = tokens.to(self.device).contiguous()
+            dist.broadcast(tokens, src=0)
+            return self._decode(tokens, steps)
+
+    def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The fp32 logits [B, vocab] of the first generated token: the
+        replica's prefill of ``tokens`` [B, S], on every rank."""
+        import torch.distributed as dist
+        with self._lock:
+            B, S = tokens.shape
+            self._header(_PREFILL, B, S)
+            tokens = tokens.to(self.device).contiguous()
+            dist.broadcast(tokens, src=0)
+            return self._decode.prefill(tokens)
+
+    def stats(self) -> list[dict]:
+        """Per rank, in rank order: K1 and K4 launches, peak and current
+        bytes allocated on its card (0 on the CPU)."""
+        with self._lock:
+            self._header(_STATS)
+            return _collect_stats(self.device)
+
+    def reset_stats(self) -> None:
+        """Launch counts to 0 and the peak memory statistics reset, on
+        every rank."""
+        with self._lock:
+            self._header(_RESET)
+            _reset_stats(self.device)
+
+    def stop(self) -> None:
+        import torch.distributed as dist
+        with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            self._header(_STOP)
+        for p in self._procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        dist.destroy_process_group()
+
+    def join(self, timeout: float | None = None) -> None:
+        """The ranks have ended once :meth:`stop` returns."""
+
+
+def _rank_loop(decode, device) -> None:
+    import torch.distributed as dist
+    while True:
+        hdr = torch.empty(4, dtype=torch.long, device=device)
+        dist.broadcast(hdr, src=0)
+        op, B, S, steps = hdr.tolist()
+        if op == _STOP:
+            return
+        if op in (_DECODE, _PREFILL):
+            tokens = torch.empty((B, S), dtype=torch.long, device=device)
+            dist.broadcast(tokens, src=0)
+            if op == _DECODE:
+                decode(tokens, steps)
+            else:
+                decode.prefill(tokens)
+        elif op == _STATS:
+            _collect_stats(device)
+        elif op == _RESET:
+            _reset_stats(device)
+
+
+def _tp_rank_main(argv, rank, world, addr, cards) -> None:
+    """A rank other than 0 of a ``--tp`` replica: build its shards, then
+    follow rank 0's broadcasts until it stops."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    args = _parser().parse_args(argv)
+    from tpushare_torch.workloads.hbm import apply_hbm_gating
+    apply_hbm_gating()
+    try:
+        decode, device, _cfg = _tp_model(args, rank, world, addr, cards)
+        _rank_loop(decode, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tp_model(args, rank, world, addr, cards):
+    """Join the replica's process group as ``rank`` on its card, and draw
+    its shards of the weights: ``(decode, device, cfg)``."""
+    from tpushare_torch.workloads import parallel, resolve_device
+    from tpushare_torch.workloads.hbm import apply_memory_fraction
+    from tpushare_torch.workloads.model import (
+        forward_cached, greedy_decode, greedy_decode_kv, init_kv_cache,
+        init_params, local_heads)
+    device_type = resolve_device(args.device).type
+    device = torch.device("cpu")
+    if device_type == "cuda":
+        device = torch.device("cuda", cards[rank % len(cards)])
+    backend = parallel.init_rank(rank, world, addr, device_type,
+                                 device=device)
+    if device_type == "cuda":
+        apply_memory_fraction()
+    cfg = _serve_cfg(args)
+    shape, names = tp_layout(cfg, world)
+    mesh = parallel.make_mesh(device_type, shape, names)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.inference_mode():
+        params = init_params(cfg, gen, mesh=mesh,
+                             int8=args.quant == "int8")
+    if rank == 0:
+        print(f"tp replica: {world} ranks, mesh {dict(zip(names, shape))},"
+              f" transport {backend}", flush=True)
+
+    def decode(tokens, steps):
+        with torch.inference_mode():
+            if args.no_kv_cache:
+                return greedy_decode(params, tokens, steps, cfg)
+            return greedy_decode_kv(params, tokens, steps, cfg,
+                                    rolling=args.rolling_kv)
+
+    def prefill(tokens):
+        """The KV-cached prefill greedy_decode_kv starts with: the logits
+        of the first generated token."""
+        with torch.inference_mode():
+            B, S = tokens.shape
+            cache = init_kv_cache(cfg, B, S + 1, device=device,
+                                  kv_heads=local_heads(
+                                      parallel.localize(params)[0], cfg,
+                                      mesh)[1])
+            logits, _ = forward_cached(params, tokens, cache, 0, cfg,
+                                       prefill_from_zero=True)
+            return logits[:, -1]
+
+    decode.prefill = prefill
+    return decode, device, cfg
+
+
+def _serve_cfg(args):
+    from tpushare_torch.workloads.model import PRESETS
+    return dataclasses.replace(
+        PRESETS[args.preset], attn=args.attn,
+        kv_cache_dtype=args.kv_cache_dtype,
+        attn_window=args.attn_window or None).validate()
+
+
+def _start_tp(argv, args, world):
+    """Start ranks 1..world-1 and join as rank 0: ``(TPReplica, cfg)``."""
+    from tpushare_torch.contract import ENV_PLACEMENT_BOX
+    from tpushare_torch.workloads import parallel, resolve_device
+    device_type = resolve_device(args.device).type
+    cfg = _serve_cfg(args)
+    cards = [0]
+    if device_type == "cuda":
+        shape, _ = tp_layout(cfg, world)
+        n = torch.cuda.device_count()
+        if n >= world:
+            cards = _flatten(compose_mesh_devices(
+                list(range(n)), os.environ.get(ENV_PLACEMENT_BOX), shape))
+        if parallel.transport(device_type, world) == "gloo":
+            # build the kernels once, here, before the ranks want them
+            from tpushare_torch.kernels import build
+            build.build()
+    addr = f"tcp://localhost:{parallel.free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank_main, daemon=True,
+                         args=(argv, r, world, addr, cards))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        decode, device, cfg = _tp_model(args, 0, world, addr, cards)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.join(timeout=10)
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        raise
+    return TPReplica(decode, device, procs), cfg
+
+
+# -- live-migration seam ------------------------------------------------------
 # Process-local registry: workload name -> serve frontend, so a co-resident
 # migrator can park a replica's loop at a quantum boundary. The port's own;
 # wiring it to the scheduler side's migrator is later work.
@@ -267,7 +618,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--rolling-kv", action="store_true",
                     help="ring-buffer KV cache sized by --attn-window")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel size (0 or 1: one card)")
+                    help="tensor-parallel ranks (0: the visible cards; "
+                         "one on the CPU)")
     ap.add_argument("--engine", action="store_true",
                     help="continuous batching over a fixed slot pool")
     ap.add_argument("--engine-slots", type=int, default=8)
@@ -285,11 +637,13 @@ def _parser() -> argparse.ArgumentParser:
 def build_server(argv: list[str] | None = None):
     """Parse ``argv``, build the model, the engine frontend (with
     ``--engine``, started) and the HTTP server. Returns
-    ``(httpd, frontend)``; ``frontend`` is None without ``--engine``.
+    ``(httpd, frontend)``; ``frontend`` is the :class:`TPReplica` with
+    ``--tp`` above 1 (its ranks started), None without ``--engine``.
     The caller runs ``httpd.serve_forever()`` and, at the end, stops
     the frontend and closes the server."""
     ap = _parser()
     args = ap.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
 
     from tpushare_torch.workloads.hbm import (
         apply_hbm_gating, apply_memory_fraction)
@@ -306,28 +660,34 @@ def build_server(argv: list[str] | None = None):
         ap.error("--rolling-kv requires --attn-window")
     if args.rolling_kv and args.no_kv_cache:
         ap.error("--rolling-kv conflicts with --no-kv-cache")
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor parallelism is not ported yet (ROADMAP.md "
-            "Queue 1 item 12)")
+    if args.tp < 0:
+        ap.error(f"--tp {args.tp} must be >= 0")
     if args.preset not in PRESETS:
         ap.error(f"--preset {args.preset!r}: one of {sorted(PRESETS)}")
     if args.engine and PRESETS[args.preset].moe_experts:
         ap.error("--engine excludes MoE presets (capacity routing couples "
                  "slots)")
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-        apply_memory_fraction()
-    cfg = dataclasses.replace(
-        PRESETS[args.preset], attn=args.attn,
-        kv_cache_dtype=args.kv_cache_dtype,
-        attn_window=args.attn_window or None).validate()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    with torch.inference_mode():
-        params = init_params(cfg, gen)
-        if args.quant == "int8":
-            params = quantize_int8(params)
+    tp = args.tp or (torch.cuda.device_count() if device.type == "cuda"
+                     else 1)
+    if tp > 1 and args.engine:
+        raise NotImplementedError(
+            "--engine with --tp above 1: continuous batching over tensor-"
+            "parallel ranks is not ported yet (ROADMAP.md Queue 1 item 16)")
+    tp_replica = None
+    if tp > 1:
+        tp_replica, cfg = _start_tp(argv, args, tp)
+        device = tp_replica.device
+    else:
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+            apply_memory_fraction()
+        cfg = _serve_cfg(args)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        with torch.inference_mode():
+            params = init_params(cfg, gen)
+            if args.quant == "int8":
+                params = quantize_int8(params)
 
     if args.no_kv_cache and args.kv_cache_dtype == "int8":
         print("note: --kv-cache-dtype int8 has no effect with "
@@ -341,6 +701,8 @@ def build_server(argv: list[str] | None = None):
               flush=True)
 
     def decode(tokens: torch.Tensor, steps: int) -> torch.Tensor:
+        if tp_replica is not None:
+            return tp_replica.decode(tokens, steps)
         with torch.inference_mode():
             if args.no_kv_cache:
                 return greedy_decode(params, tokens, steps, cfg)
@@ -528,13 +890,17 @@ def build_server(argv: list[str] | None = None):
     except OSError:
         if engine_front is not None:
             engine_front.stop()
+        if tp_replica is not None:
+            tp_replica.stop()
         raise
     front = (f", engine slots={args.engine_slots} "
              f"quantum={args.engine_quantum}" if engine_front else "")
+    if tp_replica is not None:
+        front = f", tp={tp}"
     print(f"tpushare-torch-serve ready on :{httpd.server_address[1]} "
           f"(preset={args.preset}, quant={args.quant}, device={device}"
           f"{front})", flush=True)
-    return httpd, engine_front
+    return httpd, engine_front or tp_replica
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -23,8 +23,11 @@ reads them through :func:`tpushare_torch.workloads.model.train_params`
 (one leaf per layer and weight, views into the stacked tensors), as the
 llama trainer does.
 
-The sharded layout (``vit_param_specs``) waits for the port's sharded
-slice (ROADMAP.md Queue 1 item 12).
+Sharded: :func:`vit_param_specs` is the reference's Megatron layout
+over "tp" (images over "dp" at the call site); ``init_vit_params(cfg,
+gen, mesh=...)`` draws the same weights and keeps each rank's shard as a
+DTensor, and :func:`vit_forward` adds one all-reduce after wo and one
+after w2 per block (:mod:`tpushare_torch.workloads.parallel`).
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
     attention_reference, flash_attention)
-from tpushare_torch.workloads.model import AdamW, _layer
+from tpushare_torch.workloads.model import AdamW, _layer, _sharded_step
+from tpushare_torch.workloads.parallel import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,43 +90,84 @@ PRESETS_VIT = {
                           n_heads=4, d_ff=128, classes=10),
 }
 
-def init_vit_params(cfg: ViTConfig, generator: torch.Generator) -> dict:
+def vit_param_specs(cfg: ViTConfig) -> dict:
+    """The reference's Megatron tp layout (cf. ``model.param_specs``: one
+    all-reduce after wo and one after w2 per block); the batch shards
+    over "dp" at the call site."""
+    return {
+        "patch_embed": P(None, None),
+        "cls_token": P(None, None, None),
+        "pos_embed": P(None, None, None),
+        "layers": {
+            "ln1": P(None, None), "ln1_b": P(None, None),
+            "wq": P(None, None, "tp"), "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"), "wo": P(None, "tp", None),
+            "ln2": P(None, None), "ln2_b": P(None, None),
+            "w1": P(None, None, "tp"), "w2": P(None, "tp", None),
+        },
+        "final_ln": P(None), "final_ln_b": P(None),
+        "head": P(None, None),
+    }
+
+
+def init_vit_params(cfg: ViTConfig, generator: torch.Generator | None,
+                    mesh=None, device=None) -> dict:
     """Stacked-layer parameters (leading axis = layer) drawn from
     ``generator`` on its device: weights N(0, 1/fan_in) in fp32 cast to
     cfg.dtype, the position embedding N(0, 0.02^2) in fp32, norms fp32
     (scale one, bias zero), the [CLS] token zero. Draw order: patch
-    embedding, position embedding, wq, wk, wv, wo, w1, w2, head."""
+    embedding, position embedding, wq, wk, wv, wo, w1, w2, head. With a
+    ``mesh`` each rank keeps its shard under :func:`vit_param_specs` as
+    DTensors; ``generator`` None allocates on ``device`` without
+    drawing."""
     cfg.validate()
-    dev = generator.device
+    dev = generator.device if generator is not None else torch.device(
+        device or "cpu")
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     pdim = cfg.patch * cfg.patch * cfg.channels
+    specs = vit_param_specs(cfg)
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev,
-                           dtype=torch.float32)
+    def spec(path):
+        return specs[path] if path in specs else specs["layers"][path]
 
-    def w(*shape, fan_in):
-        return normal(*shape).mul_(fan_in ** -0.5).to(cfg.dtype)
+    def wrap(path, t):
+        if mesh is None:
+            return t
+        return parallel.as_dtensor(t, spec(path), mesh)
 
-    def f32(fill, *shape):
-        return torch.full(shape, fill, dtype=torch.float32, device=dev)
+    def normal(path, *shape, mult, dtype):
+        own, _ = parallel.draw(shape, generator, mult, dtype,
+                               spec(path) if mesh is not None else None,
+                               mesh, device=dev)
+        return wrap(path, own)
 
-    patch_embed = w(pdim, d, fan_in=pdim)
-    pos_embed = normal(1, cfg.seq, d).mul_(0.02)
-    wq, wk, wv, wo = (w(L, d, d, fan_in=d) for _ in range(4))
-    w1 = w(L, d, f, fan_in=d)
-    w2 = w(L, f, d, fan_in=f)
+    def w(path, *shape, fan_in):
+        return normal(path, *shape, mult=fan_in ** -0.5, dtype=cfg.dtype)
+
+    def full(path, fill, *shape, dtype=torch.float32):
+        t = torch.full(shape, fill, dtype=dtype, device=dev)
+        return wrap(path, t)
+
+    patch_embed = w("patch_embed", pdim, d, fan_in=pdim)
+    pos_embed = normal("pos_embed", 1, cfg.seq, d, mult=0.02,
+                       dtype=torch.float32)
+    wq, wk, wv, wo = (w(n, L, d, d, fan_in=d)
+                      for n in ("wq", "wk", "wv", "wo"))
+    w1 = w("w1", L, d, f, fan_in=d)
+    w2 = w("w2", L, f, d, fan_in=f)
     return {
         "patch_embed": patch_embed,
-        "cls_token": torch.zeros((1, 1, d), dtype=cfg.dtype, device=dev),
+        "cls_token": full("cls_token", 0.0, 1, 1, d, dtype=cfg.dtype),
         "pos_embed": pos_embed,
-        "layers": {"ln1": f32(1.0, L, d), "ln1_b": f32(0.0, L, d),
+        "layers": {"ln1": full("ln1", 1.0, L, d),
+                   "ln1_b": full("ln1_b", 0.0, L, d),
                    "wq": wq, "wk": wk, "wv": wv, "wo": wo,
-                   "ln2": f32(1.0, L, d), "ln2_b": f32(0.0, L, d),
+                   "ln2": full("ln2", 1.0, L, d),
+                   "ln2_b": full("ln2_b", 0.0, L, d),
                    "w1": w1, "w2": w2},
-        "final_ln": f32(1.0, d),
-        "final_ln_b": f32(0.0, d),
-        "head": w(d, cfg.classes, fan_in=d),
+        "final_ln": full("final_ln", 1.0, d),
+        "final_ln_b": full("final_ln_b", 0.0, d),
+        "head": w("head", d, cfg.classes, fan_in=d),
     }
 
 
@@ -148,9 +194,12 @@ def patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 def vit_forward(params: dict, images: torch.Tensor,
                 cfg: ViTConfig) -> torch.Tensor:
     """[B, H, W, C] images -> [B, classes] fp32 logits. ``params`` is a
-    stacked tree or its ``model.train_params`` view."""
+    stacked tree or its ``model.train_params`` view; on a mesh (a DTensor
+    tree) the images are this rank's rows of the batch and each rank
+    computes its heads and its share of the MLP."""
+    params, mesh = parallel.localize(params)
     B = images.shape[0]
-    nh, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    hd, d = cfg.head_dim, cfg.d_model
 
     x = patchify(images.to(cfg.dtype), cfg) @ params["patch_embed"]
     cls = params["cls_token"].expand(B, 1, d)
@@ -160,19 +209,21 @@ def vit_forward(params: dict, images: torch.Tensor,
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = _layernorm(x, lp["ln1"], lp["ln1_b"])
-        # [B, S, H, D] projections, handed over as [B, H, S, D] views
-        q = (h @ lp["wq"]).reshape(B, S, nh, hd).transpose(1, 2)
-        k = (h @ lp["wk"]).reshape(B, S, nh, hd).transpose(1, 2)
-        v = (h @ lp["wv"]).reshape(B, S, nh, hd).transpose(1, 2)
+        h = parallel.copy_to(_layernorm(x, lp["ln1"], lp["ln1_b"]), mesh)
+        # [B, S, H, D] projections (this rank's heads), handed over as
+        # [B, H, S, D] views
+        q = (h @ lp["wq"]).reshape(B, S, -1, hd).transpose(1, 2)
+        k = (h @ lp["wk"]).reshape(B, S, -1, hd).transpose(1, 2)
+        v = (h @ lp["wv"]).reshape(B, S, -1, hd).transpose(1, 2)
         if cfg.attn == "flash":
             o = flash_attention(q, k, v, causal=False)
         else:
             o = attention_reference(q, k, v, causal=False)
-        o = o.transpose(1, 2).reshape(B, S, d)
-        x = x + o @ lp["wo"]
-        h = _layernorm(x, lp["ln2"], lp["ln2_b"])
-        x = x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+        o = o.transpose(1, 2).reshape(B, S, -1)
+        x = x + parallel.reduce_from(o @ lp["wo"], mesh)
+        h = parallel.copy_to(_layernorm(x, lp["ln2"], lp["ln2_b"]), mesh)
+        x = x + parallel.reduce_from(
+            F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"], mesh)
     x = _layernorm(x, params["final_ln"], params["final_ln_b"])
     return (x[:, 0] @ params["head"]).float()  # [CLS] head
 
@@ -192,14 +243,10 @@ def make_vit_train_step(cfg: ViTConfig, learning_rate: float = 1e-3):
     ``train_step(params, opt_state, images, labels) -> (params,
     opt_state, loss)``, updating in place and freeing the gradients
     after the update. ``tx`` is the port's ``optax.adamw`` (optax's
-    defaults, learning rate 1e-3 as in the reference)."""
+    defaults, learning rate 1e-3 as in the reference). Sharded, as
+    ``model.make_train_step``: this rank's rows of the batch, gradients
+    averaged over "dp", the global batch's loss returned."""
     tx = AdamW(learning_rate)
-
-    def train_step(params, opt_state, images, labels):
-        loss = classification_loss(vit_forward(params, images, cfg), labels)
-        loss.backward()
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, loss.detach()
-
-    return tx, train_step
+    return tx, _sharded_step(
+        lambda params, images, labels: classification_loss(
+            vit_forward(params, images, cfg), labels))
