@@ -8,6 +8,7 @@
                                               # check against planted faults
     python3 chip_smoke.py --plant dp-mean,copy-to-bwd  # the shard
                                               # trainer's check, likewise
+    python3 chip_smoke.py --plant pp-embed-sum  # the seq pipeline's check
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -67,6 +68,23 @@ Phases, each printing its own lines; any failure exits non-zero:
                through K1, K2 and K3; (c) one Mixtral-width MoE layer at
                ep=2, forward and backward at T=1023, against the
                one-process ``moe_ffn``.
+6c. seq     -- sequence and pipeline parallelism, four ranks sharing the
+               card over gloo: which of gloo's calls take CUDA tensors;
+               (a) ``samples/6-gang.yaml``'s hot op, ``player --sp ring``
+               at llama-8b heads over S = 32768 (8192 rows a rank), every
+               visiting chunk through K1 (r + 1 launches a call on rank
+               r), the output against one-process K1 over the whole
+               sequence, the same sequence zigzagged (2n + 1 launches a
+               rank), and at S = 4096 against the plain fold; (b) two
+               ``player --sp ring --multihost`` gang members from the
+               rendezvous env; (c) Ulysses at llama-8b heads over S =
+               32768 with a 4096 window, forward and backward bitwise
+               one-process ``flash_attention``; (d) the GPipe pipeline at
+               llama-8b widths cut to 8 layers, pp = 4, B = 4 in 4
+               microbatches on seeded random tokens: logits against the
+               one-process forward, three train steps held against the
+               one-process trainer as in shard (b), K1, K2, K3 on every
+               stage's layers.
 7. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
 8. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
@@ -93,6 +111,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -246,6 +265,57 @@ SHARD_REF_LEAVES = ("lm_head", "final_norm", "layers.0.attn_norm",
 SHARD_MOE_T = 1023
 SHARD_TRAIN_SHAPE = "tp=2 train S=1023"
 
+# the seq phase: sequence and pipeline parallelism, four ranks sharing the
+# card over gloo as a gang member's four chips would hold them.
+# (a) samples/6-gang.yaml's hot op, ``player --sp ring``, at llama-8b
+# heads (32 query, 8 kv, of 128) over S = 32768 (Llama 3.1's 32k-class
+# context): 8192 rows a rank
+SEQ_RANKS = 4
+SEQ_S = 32768
+SEQ_RING_STEPS = 3
+SEQ_RING_ARGV = ["--preset", "llama-8b", "--sp", "ring", "--seq",
+                 str(SEQ_S), "--steps", str(SEQ_RING_STEPS), "--device",
+                 "cuda"]
+# the ring's output against one-process K1 over the whole sequence: each
+# visiting chunk's O is rounded to bf16 (half an ulp, 2**-9 of |O|)
+# before the fp32 merge and the merged O once more, where one-process K1
+# rounds once. Rank 0's rows fold one chunk and come out bitwise; every
+# other row sees over 8192 keys, so |O| < 1 there and the merge moves it
+# by at most a few 2**-9: allow 2**-7
+RING_TOL = 2 ** -7
+# the card's route against the plain fold, at S = 4096 (the fold's fp32
+# scores take 128 MB a step there, 8 GiB at 32768): kernel vs plain, as
+# in the kernels phase (TOL)
+SEQ_FOLD_S = 4096
+# (b) two gang members, as the device plugin starts them
+SEQ_GANG_ARGV = ["--preset", "llama-8b", "--sp", "ring", "--multihost",
+                 "--steps", "2", "--device", "cuda"]
+# (c) Ulysses at llama-8b heads over S = 32768 with Mistral 7B's
+# published sliding window
+SEQ_WINDOW = 4096
+SEQ_ULYSSES_SEED = 21
+SEQ_RING_SHAPE = f"ring chunk S={SEQ_S // SEQ_RANKS}"
+SEQ_ULYSSES_SHAPE = f"ulysses heads S={SEQ_S} window {SEQ_WINDOW}"
+# (d) the GPipe pipeline at llama-8b widths, depth cut from 32 to 8
+# layers (2 a stage), pp = 4, B = 4 in M = 4 microbatches, on S = 1024
+# seeded random tokens
+PP_LAYERS = 8
+PP_BATCH, PP_SEQ, PP_TOKEN_SEED = 4, 1024, 11
+PP_MICROBATCHES = 4
+# logits of the pipelined forward against the one-process forward: the
+# microbatches' products (1023 rows) round as cuBLAS picks for their
+# shape, the one process's (4092 rows) as for its own, a bf16 ulp here
+# and there carried through 8 residual layers; a wrong stage order or a
+# lost handoff misses by the logit spread (about 4), as SHARD_LOGIT_TOL
+PP_LOGIT_TOL = 0.25
+# the leaves held against the one-process trainer after steps 1 and 3:
+# every layer's attention weights and norms (every stage's), two layers'
+# w2, and the embedding and head every rank holds
+PP_REF_LEAVES = ("embed", "lm_head", "final_norm", "layers.1.w2",
+                 "layers.6.w2", *(f"layers.{i}.{n}" for i in range(PP_LAYERS)
+                                  for n in ("wq", "wk", "wv", "wo",
+                                            "attn_norm", "ffn_norm")))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -348,6 +418,15 @@ class Smoke:
                      None, True) for S in (100, 450)],
                   (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
                    True),
+                  # the ring's visiting chunks (S/n rows against S/n keys:
+                  # the diagonal causal, the others fully visible) and
+                  # Ulysses' head subset over the whole sequence
+                  (SEQ_RING_SHAPE, 1, 32, 8, SEQ_S // SEQ_RANKS, 128, bf16,
+                   True, None, False),
+                  (SEQ_RING_SHAPE + " non-causal", 1, 32, 8,
+                   SEQ_S // SEQ_RANKS, 128, bf16, False, None, False),
+                  (SEQ_ULYSSES_SHAPE, 1, 32 // SEQ_RANKS, 8 // SEQ_RANKS,
+                   SEQ_S, 128, bf16, True, SEQ_WINDOW, False),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -381,7 +460,8 @@ class Smoke:
             ms = time_ms(kernel, 50)
             host_ms = call_ms(kernel)
             plain_ms = time_ms(
-                lambda: flash_attention_plain(q, k, v, causal, window), 5)
+                lambda: flash_attention_plain(q, k, v, causal, window),
+                plain_calls(S, 5))
             mask = None
             if window is not None:
                 pos = torch.arange(S, device=dev)
@@ -560,6 +640,10 @@ class Smoke:
                   (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
                   (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
                    True),
+                  # Ulysses' head subset over the whole sequence (the ring's
+                  # chunks have no backward on the card)
+                  (SEQ_ULYSSES_SHAPE, 1, 32 // SEQ_RANKS, 8 // SEQ_RANKS,
+                   SEQ_S, 128, bf16, True, SEQ_WINDOW, False),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -621,7 +705,7 @@ class Smoke:
                 bound = flash_bwd_bound(key, B, H, Hkv, S, D, dt, causal,
                                         window)
                 row[key] = {"ms": time_ms(fn, 20), "call_ms": call_ms(fn),
-                            "plain_ms": time_ms(plain, 3),
+                            "plain_ms": time_ms(plain, plain_calls(S)),
                             "max_abs_err": max(errs[n][0] for n in names),
                             "max_abs": max(errs[n][1] for n in names),
                             **bound}
@@ -1368,6 +1452,267 @@ class Smoke:
         return {"T": SHARD_MOE_T, "worst_rel": worst, "errors": r0["errors"],
                 "ep_ms": r0["ep_ms"], "one_ms": r0["one_ms"]}
 
+    # -- 6c. seq -----------------------------------------------------------
+    def seq(self):
+        """Sequence and pipeline parallelism, four ranks sharing the card
+        over gloo: what gloo carries for CUDA tensors; then one world of
+        four ranks for (a) ``player --sp ring`` at S = 32768, (c) Ulysses
+        and (d) the pipeline, after the pipeline's one-process reference;
+        then (b) two ``--multihost`` gang members."""
+        import torch
+        from tpushare_torch.workloads import parallel
+        probes = gloo_probes()
+        log("seq: gloo with CUDA tensors between two ranks on this card: "
+            + "; ".join(f"{op} {res}" for op, res in probes.items()))
+        transport = parallel.transport("cuda", SEQ_RANKS)
+        log(f"seq: transport for {SEQ_RANKS} ranks: {transport} "
+            f"({torch.cuda.device_count()} card(s) visible)")
+        world, ref = self._seq_world(("ring", "ulysses", "pipeline"))
+        failures = []
+        ring = self._seq_ring([r["ring"] for r in world], failures)
+        uly = self._seq_ulysses([r["ulysses"] for r in world], failures)
+        readings, pp_fail = seq_pipeline_judge(
+            [r["pipeline"] for r in world], ref)
+        failures += pp_fail
+        pipe = self._seq_pipeline_log([r["pipeline"] for r in world], ref,
+                                      readings)
+        gang = self._seq_gang(failures)
+        if failures:
+            raise AssertionError("seq: " + "; ".join(failures))
+        self.seq_launches = {
+            "seq_ring": {"flash_fwd": ring["launches_per_rank"][-1]},
+            "seq_ring_zigzag": {"flash_fwd": ring["zigzag_launches"][0]},
+            "seq_ulysses": uly["launches"],
+            "seq_pipeline": pipe["launches"]}
+        self.results["seq"] = {"gloo_cuda": probes, "transport": transport,
+                               "ring": ring, "ulysses": uly,
+                               "pipeline": pipe, "gang": gang}
+
+    def _seq_world(self, parts, plant: str | None = None):
+        """The pipeline's one-process reference, then ``parts`` in one
+        world of ``SEQ_RANKS`` ranks; returns (each rank's results, the
+        reference's losses and times)."""
+        import gc
+        import shutil
+        import tempfile
+
+        import torch
+        from tpushare_torch.workloads import parallel
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="seq-", dir=ROOT / "build"))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ref = pp_reference(work / "ref.pt")
+            gc.collect()
+            torch.cuda.empty_cache()
+            # -- each part resets its counts just before its main path and
+            # reads them just after (seq_ring_rank, seq_ulysses_rank,
+            # seq_pipeline_rank) --
+            world = parallel.run_ranks(seq_rank, SEQ_RANKS, list(parts),
+                                       str(work / "ref.pt"), plant,
+                                       device_type="cuda", timeout=1200)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return world, ref
+
+    def _seq_ring(self, runs, failures) -> dict:
+        n = len(runs)
+        for r, run in enumerate(runs):
+            want = SEQ_RING_STEPS * (r + 1)
+            if run["launches"] != want:
+                failures.append(f"ring: rank {r} K1 launches "
+                                f"{run['launches']} != {SEQ_RING_STEPS} "
+                                f"steps x {r + 1} visible chunks")
+            if run["zigzag_launches"] != 2 * n + 1:
+                failures.append(f"ring zigzag: rank {r} K1 launches "
+                                f"{run['zigzag_launches']} != {2 * n + 1}")
+            if not (run["finite"] and run["world"] == n
+                    and run["shape"] == [1, 32, SEQ_S // n, 128]):
+                failures.append(f"ring: rank {r} output {run['shape']}, "
+                                f"finite {run['finite']}, world "
+                                f"{run['world']}")
+            for name in ("err", "err_zigzag"):
+                if not run[name] <= RING_TOL:
+                    failures.append(f"ring: rank {r} {name} {run[name]:.4g}"
+                                    f" against one-process K1 (limit "
+                                    f"{RING_TOL})")
+            for layout, f in run["fold"].items():
+                if not (f["vs_plain"] <= TOL["bfloat16"]["out"]
+                        and f["plain_vs_k1"] <= TOL["bfloat16"]["out"]):
+                    failures.append(f"ring at S={SEQ_FOLD_S} {layout}: {f}"
+                                    f" (limit {TOL['bfloat16']['out']})")
+        steady = [statistics.median(run["step_s"][1:]) for run in runs]
+        rate = 1 / max(steady)
+        log(f"seq ring: player --sp ring, llama-8b heads (32/8 of 128), "
+            f"bf16, S={SEQ_S} over {n} ranks ({SEQ_S // n} rows a rank): "
+            f"{rate:.3f} ring/s (steps " + ", ".join(
+                f"{t * 1e3:.1f}" for t in runs[0]["step_s"]) + " ms, rank "
+            "0); K1 launches per rank " + ", ".join(
+                str(run["launches"]) for run in runs)
+            + f" = {SEQ_RING_STEPS} steps x r+1; against one-process K1 "
+            "over the whole sequence max|d| per rank " + ", ".join(
+                f"{run['err']:.3g}" for run in runs)
+            + f" (limit {RING_TOL}; rank 0 bitwise: {runs[0]['bitwise']}; "
+            f"max|O| {runs[0]['max_abs']:.3g}); peak allocated per rank "
+            + ", ".join(f"{run['peak'] / 2**30:.2f}" for run in runs)
+            + " GiB")
+        log("seq ring zigzag: ring_attention(zigzag=True) on the same "
+            "sequence: K1 launches per rank " + ", ".join(
+                str(run["zigzag_launches"]) for run in runs)
+            + f" (= 2n+1); max|d| " + ", ".join(
+                f"{run['err_zigzag']:.3g}" for run in runs)
+            + "; one call " + ", ".join(f"{run['zigzag_s'] * 1e3:.1f}"
+                                        for run in runs) + " ms")
+        def worst(key):
+            return "; ".join(
+                f"{k} {max(run['fold'][k][key] for run in runs):.3g}"
+                for k in ("contiguous", "zigzag"))
+
+        log(f"seq ring at S={SEQ_FOLD_S}: K1 route vs plain fold max|d| "
+            + worst("vs_plain") + "; plain fold vs one-process K1 "
+            + worst("plain_vs_k1"))
+        return {"S": SEQ_S, "ranks": n, "ring_per_s": rate,
+                "step_s": [run["step_s"] for run in runs],
+                "launches_per_rank": [run["launches"] for run in runs],
+                "zigzag_launches": [run["zigzag_launches"] for run in runs],
+                "max_abs_diff": [run["err"] for run in runs],
+                "zigzag_max_abs_diff": [run["err_zigzag"] for run in runs],
+                "rank0_bitwise": runs[0]["bitwise"],
+                "zigzag_s": [run["zigzag_s"] for run in runs],
+                "fold": [run["fold"] for run in runs],
+                "peak_per_rank": [run["peak"] for run in runs]}
+
+    def _seq_ulysses(self, runs, failures) -> dict:
+        want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"),
+                             1)
+        for r, run in enumerate(runs):
+            if run["launches"] != want:
+                failures.append(f"ulysses: rank {r} launches "
+                                f"{run['launches']}, expected {want}")
+            if not all(run["bitwise"].values()):
+                failures.append(f"ulysses: rank {r} not bitwise one-process "
+                                f"flash_attention: {run['max_abs_diff']}")
+        log(f"seq ulysses: {len(runs)} ranks, llama-8b heads (8/2 a rank), "
+            f"S={SEQ_S}, window {SEQ_WINDOW}, attn=flash, forward and "
+            "backward: output and dq, dk, dv bitwise one-process "
+            "flash_attention on every rank: " + ", ".join(
+                str(all(run["bitwise"].values())) for run in runs)
+            + f"; K1, K2, K3 launches per rank "
+            + "; ".join(", ".join(str(v) for v in run["launches"].values())
+                        for run in runs)
+            + "; forward and backward " + ", ".join(
+                f"{run['wall_s'] * 1e3:.1f}" for run in runs)
+            + " ms a rank, again " + ", ".join(
+                f"{run['warm_s'] * 1e3:.1f}" for run in runs)
+            + f" ms (host clock) against {runs[0]['one_ms']:.2f} ms in one "
+            "process (CUDA events); peak allocated per rank " + ", ".join(
+                f"{run['peak'] / 2**30:.2f}" for run in runs) + " GiB")
+        return {"launches": runs[0]["launches"],
+                "bitwise": [run["bitwise"] for run in runs],
+                "max_abs_diff": [run["max_abs_diff"] for run in runs],
+                "wall_s": [run["wall_s"] for run in runs],
+                "warm_s": [run["warm_s"] for run in runs],
+                "one_ms": runs[0]["one_ms"],
+                "peak_per_rank": [run["peak"] for run in runs]}
+
+    def _seq_pipeline_log(self, runs, ref, readings) -> dict:
+        log(f"seq pipeline: llama-8b widths at {PP_LAYERS} layers, pp="
+            f"{len(runs)} ({PP_LAYERS // len(runs)} layers a stage), "
+            f"B={PP_BATCH} in {PP_MICROBATCHES} microbatches, S="
+            f"{PP_SEQ - 1} (seeded random tokens): logits vs one process "
+            "max|d| " + ", ".join(f"{run['logit_err']:.4g}" for run in runs)
+            + f" (limit {PP_LOGIT_TOL}; max|logit| "
+            f"{runs[0]['logit_spread']:.3g}); losses "
+            + ", ".join(f"{x:.6g}" for x in runs[0]["losses"])
+            + "; one process: " + ", ".join(f"{x:.6g}" for x in ref["losses"])
+            + "; step times " + ", ".join(f"{t * 1e3:.1f}"
+                                          for t in runs[0]["step_s"])
+            + " ms (one process " + ", ".join(
+                f"{t * 1e3:.1f}" for t in ref["step_s"]) + " ms); K1, K2, "
+            "K3 launches per rank " + "; ".join(
+                ", ".join(str(v) for v in run["launches"].values())
+                for run in runs)
+            + f" (= 3 steps x {PP_MICROBATCHES} microbatches x "
+            f"{PP_LAYERS // len(runs)} layers); forward check "
+            + ", ".join(str(run["fwd_launches"]) for run in runs)
+            + "; peak allocated per rank " + ", ".join(
+                f"{run['peak'] / 2**30:.2f}" for run in runs)
+            + f" GiB (one process {ref['peak'] / 2**30:.2f})")
+        log(f"seq pipeline: parameters max|d| after step 1 "
+            f"{readings['max_abs_diff'][1]:.4g} (limit "
+            f"{SHARD_STEP_TOL[1]:.4g}), after step 3 "
+            f"{readings['max_abs_diff'][3]:.4g} (limit "
+            f"{SHARD_STEP_TOL[3]:.4g}); worst leaf's mean |d| "
+            f"{readings['worst_mean_lr'][1]:.4g} lr after step 1, "
+            f"{readings['worst_mean_lr'][3]:.4g} lr after step 3 (limit "
+            f"{SHARD_MEAN_TOL} lr); losses max|d| "
+            f"{readings['loss_max_abs_diff']:.4g} (limit {SHARD_LOSS_TOL});"
+            f" embedding, norm and head equal on every rank: "
+            f"{readings['replicated_equal']}")
+        return {"layers": PP_LAYERS, "stages": len(runs), "batch": PP_BATCH,
+                "microbatches": PP_MICROBATCHES, "seq": PP_SEQ,
+                "losses": runs[0]["losses"],
+                "reference_losses": ref["losses"],
+                "step_s": runs[0]["step_s"],
+                "reference_step_s": ref["step_s"],
+                "logit_max_abs_diff": [run["logit_err"] for run in runs],
+                "launches": runs[0]["launches"],
+                "fwd_launches": [run["fwd_launches"] for run in runs],
+                "peak_per_rank": [run["peak"] for run in runs],
+                "reference_peak": ref["peak"], **readings}
+
+    def _seq_gang(self, failures) -> dict:
+        """(b) two ``player --sp ring --multihost`` processes with the
+        rendezvous env the device plugin injects, each starting one rank
+        per visible card."""
+        import torch
+        from tpushare_torch.workloads import parallel
+        local = torch.cuda.device_count()
+        world = 2 * local
+        addr = f"localhost:{parallel.free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tpushare_torch.workloads.player",
+             *SEQ_GANG_ARGV], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=dict(
+                os.environ, COORDINATOR_ADDRESS=addr, NUM_PROCESSES="2",
+                PROCESS_ID=str(p))) for p in range(2)]
+        t0 = time.perf_counter()
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=600)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=30)
+        wall = time.perf_counter() - t0
+        lines = []
+        for p, (rc, out, err) in enumerate(outs):
+            # a member's local ranks share its stdout, so their lines may
+            # interleave: read the reports wherever they stand
+            join = re.findall(r"multihost: process (\d+) of 2, rank (\d+) of "
+                              r"world (\d+), transport (gloo|nccl)", out)
+            steps = re.findall(r"step 2: [\d.]+ ring/s \(S=\d+ over (\d+) "
+                               r"devices\)", out)
+            lines.append((join, steps))
+            want = {(str(p), str(p * local + i), str(world))
+                    for i in range(local)}
+            if rc != 0 or {j[:3] for j in join} != want or \
+                    steps != [str(world)] * local:
+                failures.append(f"gang member {p} exited {rc}: "
+                                f"{out[-1500:]} {err[-1500:]}")
+        log(f"seq gang: two members (NUM_PROCESSES=2, PROCESS_ID=0/1, "
+            f"COORDINATOR_ADDRESS={addr}), {local} rank(s) each, in "
+            f"{wall:.1f} s: " + " | ".join(
+                f"member {p}: ranks " + ", ".join(r for _, r, _, _ in j)
+                + f" of world {world} over " + ", ".join({t for *_, t in j})
+                + f"; {len(st)} finished two ring steps"
+                for p, (j, st) in enumerate(lines)))
+        return {"wall_s": wall, "ranks_per_member": local, "lines": lines}
+
     # -- 7. entry ----------------------------------------------------------------
     def entry(self):
         import torch
@@ -1552,6 +1897,7 @@ class Smoke:
                    **{k: v["flash_fwd"]
                       for k, v in (*self.moe_launches.items(),
                                    *self.shard_launches.items(),
+                                   *self.seq_launches.items(),
                                    *self.vit_launches.items())}},
                "max_abs_err": max(r["max_abs_err_out"] for r in path),
                "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1576,6 +1922,7 @@ class Smoke:
                     **{k: v[f"flash_bwd_{key}"]
                        for k, v in (*self.moe_launches.items(),
                                     *self.shard_launches.items(),
+                                    *self.seq_launches.items(),
                                     *self.vit_launches.items())
                        if f"flash_bwd_{key}" in v}},
                 "max_abs_err": max(r[key]["max_abs_err"] for r in path),
@@ -1813,6 +2160,12 @@ def time_ms(fn, calls: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def plain_calls(S: int, calls: int = 3) -> int:
+    """Calls a graph of a plain version holds: ``calls``, or one from S =
+    8192 on, where one plain call takes 0.1-1.5 s."""
+    return 1 if S >= 8192 else calls
+
+
 def call_ms(fn, reps: int = 30) -> float:
     """Median time of one call from Python, host launch cost included:
     CUDA events around each call."""
@@ -2040,7 +2393,8 @@ def planted(faults: list, out: str | None) -> int:
     """Each fault of ``faults`` planted once after the card and build
     phases: one of :data:`PLANTS` into the moe phase's replica and its
     token check, one of :data:`SHARD_PLANTS` into the shard phase's dp x
-    tp trainer and its check against the one-process trainer. Prints the
+    tp trainer and its check against the one-process trainer, one of
+    :data:`SEQ_PLANTS` into the seq phase's pipeline and its check. Prints the
     check's readings for each; exits 0 only if the check refused every
     fault."""
     smoke = Smoke()
@@ -2051,6 +2405,12 @@ def planted(faults: list, out: str | None) -> int:
         if name in SHARD_PLANTS:
             doc = SHARD_PLANTS[name].__doc__
             check = smoke._shard_train(plant=name)
+        elif name in SEQ_PLANTS:
+            doc = SEQ_PLANTS[name].__doc__
+            world, ref = smoke._seq_world(("pipeline",), plant=name)
+            seen, failures = seq_pipeline_judge(
+                [r["pipeline"] for r in world], ref)
+            check = {"readings": seen, "failures": failures}
         else:
             doc = PLANTS[name].__doc__
             with moe_presets(), PLANTS[name]():
@@ -2303,6 +2663,427 @@ def shard_moe_rank(T: int) -> dict:
     return {"errors": errors, "ep_ms": ep_ms, "one_ms": one_ms}
 
 
+def pp_config():
+    """The seq phase's pipeline: llama-8b widths at ``PP_LAYERS`` layers,
+    ``--attn flash``."""
+    import dataclasses
+    from tpushare_torch.workloads import model
+    cfg = dataclasses.replace(model.PRESETS["llama-8b"], n_layers=PP_LAYERS,
+                              attn="flash")
+    return cfg.validate()
+
+
+def pp_tokens(dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(PP_TOKEN_SEED)
+    return torch.randint(0, pp_config().vocab, (PP_BATCH, PP_SEQ),
+                         device=dev, generator=gen)
+
+
+def pp_reference(path: Path) -> dict:
+    """The one-process run the pipeline is held against: the forward's
+    logits on the batch's first 1023 positions, then three
+    ``make_train_step`` steps from the same seed with ``PP_REF_LEAVES``
+    after steps 1 and 3, saved to ``path``; returns the losses and step
+    times."""
+    import torch
+    from tpushare_torch.workloads import model
+
+    cfg = pp_config()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = pp_tokens(dev)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.inference_mode():
+        logits = model.forward(params, tokens[:, :-1], cfg).cpu()
+    params = model.train_params(params)
+    tx, step = model.make_train_step(cfg, learning_rate=SHARD_LR)
+    opt = tx.init(params)
+    losses, step_s, snap = [], [], {}
+    for done in (1, 2, 3):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        if done in (1, 3):
+            snap[done] = {n: w.detach().cpu().clone()
+                          for n, w in model.named_leaves(params)
+                          if n in PP_REF_LEAVES}
+    torch.save({"logits": logits, "snap": snap}, path)
+    return {"losses": losses, "step_s": step_s,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def seq_ring_rank() -> dict:
+    """(a) on one rank: ``player --sp ring`` at ``SEQ_S`` (the main path,
+    its K1 count set to 0 just before and read just after), then its
+    output chunk against one-process K1 over the whole gathered sequence,
+    the same sequence zigzagged through ``ring_attention(zigzag=True)``
+    (its own count), and at ``SEQ_FOLD_S`` the card's route against the
+    plain fold, contiguous and zigzag."""
+    import torch
+    import torch.distributed as dist
+    from tpushare_torch.kernels import flash
+    from tpushare_torch.workloads import parallel, player
+    from tpushare_torch.workloads import ringattention as ra
+    from tpushare_torch.workloads.attention import flash_attention
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path --
+    flash.LAUNCHES = 0
+    record = player.run(SEQ_RING_ARGV, return_state=True)
+    launches = flash.LAUNCHES
+    # -- end of the main path --
+    peak = torch.cuda.max_memory_allocated()
+    held = record.pop("ring")
+    out = held["out"]
+    finite = bool(torch.isfinite(out).all())
+    mesh = parallel.make_mesh("cuda", (n,), ("sp",))
+    q, k, v = (ra.gather_seq(held[x], mesh) for x in "qkv")
+    S, per = q.shape[2], out.shape[2]
+    with torch.inference_mode():
+        whole = flash_attention(q, k, v, causal=True)
+    mine = whole.narrow(2, r * per, per)
+    err = (out.float() - mine.float()).abs().max().item()
+    bitwise = bool(torch.equal(out, mine))
+    # zigzag through the library call, on the same sequence
+    perm = ra.zigzag_order(S, n).to(q.device)
+    zq, zk, zv = (ra.shard_seq(t[:, :, perm], mesh).contiguous()
+                  for t in (q, k, v))
+    torch.cuda.synchronize()
+    flash.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        zout = ra.ring_attention(zq, zk, zv, mesh, zigzag=True)
+    torch.cuda.synchronize()
+    zigzag_s = time.perf_counter() - t0
+    zigzag_launches = flash.LAUNCHES
+    zwant = ra.shard_seq(whole[:, :, perm], mesh)
+    err_z = (zout.float() - zwant.float()).abs().max().item()
+    # the card's route against the plain fold, on the first SEQ_FOLD_S
+    # positions
+    fold = {}
+    fq, fk, fv = (t[:, :, :SEQ_FOLD_S] for t in (q, k, v))
+    fwhole = whole[:, :, :SEQ_FOLD_S]
+    for zz in (False, True):
+        order = (ra.zigzag_order(SEQ_FOLD_S, n).to(q.device) if zz
+                 else torch.arange(SEQ_FOLD_S, device=q.device))
+        loc = [ra.shard_seq(t[:, :, order], mesh).contiguous()
+               for t in (fq, fk, fv)]
+        with torch.inference_mode():
+            got = ra._ring_flash(*loc, mesh, "sp", True, zz)
+            plain = ra._ring_fold(*loc, mesh, "sp", True, zz)
+        want = ra.shard_seq(fwhole[:, :, order], mesh)
+        fold["zigzag" if zz else "contiguous"] = {
+            "vs_plain": (got.float() - plain.float()).abs().max().item(),
+            "plain_vs_k1": (plain.float() - want.float()).abs().max().item()}
+    return {"launches": launches, "zigzag_launches": zigzag_launches,
+            "err": err, "bitwise": bitwise, "err_zigzag": err_z,
+            "max_abs": whole.abs().max().item(), "finite": finite,
+            "shape": list(out.shape), "step_s": record["step_s"],
+            "world": record["world"], "zigzag_s": zigzag_s, "peak": peak,
+            "fold": fold}
+
+
+def seq_ulysses_rank() -> dict:
+    """(c) on one rank: Ulysses at llama-8b heads over ``SEQ_S`` with the
+    window, ``attn="flash"``, forward and backward of a seeded dO (the
+    main path, counts set to 0 just before and read just after), then
+    one-process ``flash_attention`` on the same heads: the output and
+    dq, dk, dv must be bitwise the same."""
+    import torch
+    import torch.distributed as dist
+    from tpushare_torch.kernels import flash, flash_bwd
+    from tpushare_torch.workloads import parallel
+    from tpushare_torch.workloads import ringattention as ra
+    from tpushare_torch.workloads.attention import flash_attention
+    from tpushare_torch.workloads.ulysses import ulysses_attention
+
+    n = dist.get_world_size()
+    mesh = parallel.make_mesh("cuda", (n,), ("sp",))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SEQ_ULYSSES_SEED)
+
+    def randn(h):
+        return torch.randn(1, h, SEQ_S, 128, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v, do = randn(32), randn(8), randn(8), randn(32)
+    local = [ra.shard_seq(t, mesh).clone().requires_grad_()
+             for t in (q, k, v)]
+    dol = ra.shard_seq(do, mesh).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # -- the main path --
+    flash.LAUNCHES = flash_bwd.LAUNCHES_DQ = flash_bwd.LAUNCHES_DKDV = 0
+    t0 = time.perf_counter()
+    o = ulysses_attention(*local, mesh, causal=True, attn="flash",
+                          window=SEQ_WINDOW)
+    o.backward(dol)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_fwd": flash.LAUNCHES,
+                "flash_bwd_dq": flash_bwd.LAUNCHES_DQ,
+                "flash_bwd_dkdv": flash_bwd.LAUNCHES_DKDV}
+    # -- end of the main path --
+    peak = torch.cuda.max_memory_allocated()
+    # the same call again, warm (the first pays for the collectives'
+    # set-up)
+    again = [t.detach().clone().requires_grad_() for t in local]
+    t0 = time.perf_counter()
+    ulysses_attention(*again, mesh, causal=True, attn="flash",
+                      window=SEQ_WINDOW).backward(dol)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    of = flash_attention(*full, causal=True, window=SEQ_WINDOW)
+    of.backward(do)
+    end.record()
+    end.synchronize()
+    one_ms = start.elapsed_time(end)
+    pairs = {"out": (o, of)}
+    pairs.update({f"d{x}": (a.grad, b.grad)
+                  for x, a, b in zip("qkv", local, full)})
+    same, diff = {}, {}
+    for name, (mine, whole) in pairs.items():
+        want = ra.shard_seq(whole, mesh)
+        same[name] = bool(torch.equal(mine, want))
+        diff[name] = (mine.float() - want.float()).abs().max().item()
+    return {"launches": launches, "bitwise": same, "max_abs_diff": diff,
+            "wall_s": wall_s, "warm_s": warm_s, "one_ms": one_ms,
+            "peak": peak}
+
+
+def seq_pipeline_judge(runs: list, ref: dict) -> tuple[dict, list]:
+    """The pipeline ranks' readings against the one-process trainer's and
+    what breaks a limit: ``shard_train_judge``'s losses and leaves (each
+    rank's leaves mapped to the whole model's names), the forward's
+    logits (``PP_LOGIT_TOL``), the launches a rank, and the leaves every
+    rank holds, which must come out equal on every rank."""
+    readings, failures = shard_train_judge(runs, None, ref["losses"])
+    readings["logit_max_abs_diff"] = max(run["logit_err"] for run in runs)
+    readings["replicated_equal"] = len(
+        {run["replicated_digest"] for run in runs}) == 1
+    if not readings["logit_max_abs_diff"] <= PP_LOGIT_TOL:
+        failures.append(f"pipelined logits vs one process max|d| "
+                        f"{readings['logit_max_abs_diff']:.4g} (limit "
+                        f"{PP_LOGIT_TOL})")
+    if not readings["replicated_equal"]:
+        failures.append("the embedding, final norm and head differ between "
+                        "the pp ranks")
+    ticks = PP_MICROBATCHES * (PP_LAYERS // len(runs))
+    want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"),
+                         3 * ticks)
+    for r, run in enumerate(runs):
+        if run["launches"] != want or run["fwd_launches"] != ticks:
+            failures.append(f"pipeline rank {r} launches {run['launches']},"
+                            f" forward {run['fwd_launches']}; expected "
+                            f"{want}, {ticks}")
+    return readings, failures
+
+
+def _plant_pp_embed_sum():
+    """The embedding gradient's sum over "pp" dropped (stage 0 alone
+    holds its real gradient; the other ranks step on zero)."""
+    from unittest import mock
+
+    from tpushare_torch.workloads import pipeline
+    return mock.patch.object(pipeline, "_sum_embed_grad",
+                             lambda x, mesh, axis: x)
+
+
+# faults for ``--plant`` in the seq phase's pipeline, planted in each of
+# its ranks, to read what its check sees of them
+SEQ_PLANTS = {"pp-embed-sum": _plant_pp_embed_sum}
+
+
+def seq_pipeline_rank(ref_path: str, plant: str | None) -> dict:
+    """(d) on one rank: the stage's tree from the seeded init, the
+    pipelined forward's logits against the one-process forward's, then
+    three ``make_pipelined_train_step`` steps (the main path, counts set
+    to 0 just before and read just after), each ``PP_REF_LEAVES`` leaf
+    this rank holds after steps 1 and 3 against the one-process
+    trainer's as (max, sum, count) of |difference|, and a digest of the
+    leaves every rank holds (the embedding, final norm and head)."""
+    import hashlib
+
+    import torch
+    from tpushare_torch.kernels import flash, flash_bwd
+    from tpushare_torch.workloads import model, parallel, pipeline
+
+    ref = torch.load(ref_path, mmap=True)
+    fault = SEQ_PLANTS[plant]() if plant else contextlib.nullcontext()
+    cfg = pp_config()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh("cuda", (SEQ_RANKS,), ("pp",))
+    stage = parallel.axis_rank(mesh, "pp")
+    lo = stage * (PP_LAYERS // SEQ_RANKS)
+    tokens = pp_tokens(dev)
+    torch.cuda.reset_peak_memory_stats()
+    with fault:
+        t0 = time.perf_counter()
+        whole = model.init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(0))
+        params = pipeline.stage_params(whole, cfg, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        flash.LAUNCHES = 0
+        with torch.inference_mode():
+            logits = pipeline.pipelined_forward(
+                params, tokens[:, :-1], cfg, mesh, PP_MICROBATCHES)
+        fwd_launches = flash.LAUNCHES
+        logit_err = (logits - ref["logits"].to(dev)).abs().max().item()
+        spread = logits.abs().max().item()
+        del logits
+        params = model.train_params(params)
+        tx, step = pipeline.make_pipelined_train_step(
+            cfg, mesh, PP_MICROBATCHES, learning_rate=SHARD_LR)
+        opt = tx.init(params)
+        losses, step_s, snap = [], [], {}
+        torch.cuda.synchronize()
+        # -- the main path --
+        flash.LAUNCHES = flash_bwd.LAUNCHES_DQ = flash_bwd.LAUNCHES_DKDV = 0
+        for done in (1, 2, 3):
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            if done not in (1, 3):
+                continue
+            got = {}
+            for name, w in model.named_leaves(params):
+                if name.startswith("layers."):
+                    _, i, leaf = name.split(".")
+                    name = f"layers.{lo + int(i)}.{leaf}"
+                if name not in PP_REF_LEAVES:
+                    continue
+                d = (w.detach().float()
+                     - ref["snap"][done][name].to(dev).float()).abs()
+                got[name] = (d.max().item(), d.sum().item(), d.numel())
+            snap[done] = got
+        launches = {"flash_fwd": flash.LAUNCHES,
+                    "flash_bwd_dq": flash_bwd.LAUNCHES_DQ,
+                    "flash_bwd_dkdv": flash_bwd.LAUNCHES_DKDV}
+        # -- end of the main path --
+    digest = hashlib.sha256()
+    for name in ("embed", "final_norm", "lm_head"):
+        digest.update(params[name].detach().reshape(-1).view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    return {"stage": stage, "layers": [lo, lo + PP_LAYERS // SEQ_RANKS],
+            "logit_err": logit_err, "logit_spread": spread,
+            "fwd_launches": fwd_launches, "launches": launches,
+            "losses": losses, "step_s": step_s, "init_s": init_s,
+            "snap": snap, "replicated_digest": digest.hexdigest(),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def seq_rank(parts: list, ref_path: str | None, plant: str | None) -> dict:
+    """One rank of the seq phase's world: the ``parts`` of (a) "ring",
+    (c) "ulysses" and (d) "pipeline", in that order, each leaving the
+    card's memory as it found it."""
+    import gc
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for part in ("ring", "ulysses", "pipeline"):
+        if part not in parts:
+            continue
+        if part == "ring":
+            out[part] = seq_ring_rank()
+        elif part == "ulysses":
+            out[part] = seq_ulysses_rank()
+        else:
+            out[part] = seq_pipeline_rank(ref_path, plant)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# the calls whose CUDA-tensor support on gloo the seq phase reads (ranks
+# that share the card run on gloo)
+GLOO_PROBES = ("all_reduce", "send_recv", "batch_isend_irecv",
+               "all_to_all_single")
+
+
+def gloo_probe_rank(op: str) -> str:
+    """One rank of a two-rank gloo world on this card: ``op`` on CUDA
+    tensors, with what each rank should receive. Returns "ok", or what
+    went wrong; a crash shows in the child's exit code."""
+    import torch
+    import torch.distributed as dist
+
+    r = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        want = torch.arange(4.0) * 2 + 10
+    elif op == "send_recv":
+        got = torch.zeros_like(x)
+        if r == 0:
+            dist.send(x, 1)
+            dist.recv(got, 1)
+        else:
+            dist.recv(got, 0)
+            dist.send(x, 0)
+        x, want = got, torch.arange(4.0) + 10 * (1 - r)
+    elif op == "batch_isend_irecv":
+        got = torch.zeros_like(x)
+        ops = [dist.P2POp(dist.isend, x, 1 - r),
+               dist.P2POp(dist.irecv, got, 1 - r)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        x, want = got, torch.arange(4.0) + 10 * (1 - r)
+    else:
+        got = torch.empty_like(x)
+        dist.all_to_all_single(got, x)
+        x = got
+        want = torch.tensor([2.0 * r, 2 * r + 1, 10 + 2 * r, 11 + 2 * r])
+    torch.cuda.synchronize()
+    return "ok" if torch.equal(x.cpu(), want) else f"wrong data {x.tolist()}"
+
+
+def gloo_probe(op: str) -> int:
+    """The child of :func:`gloo_probes`: two ranks run ``op``."""
+    from tpushare_torch.workloads import parallel
+    out = parallel.run_ranks(gloo_probe_rank, 2, op, device_type="cuda",
+                             timeout=60, env={"TPUSHARE_PROBE": op})
+    print(CHILD_PREFIX + json.dumps(out), flush=True)
+    return 0
+
+
+def gloo_probes() -> dict:
+    """Which of :data:`GLOO_PROBES` gloo carries for CUDA tensors between
+    two ranks on this card, each in a child process of its own (a call
+    that gloo does not take may crash its ranks), all at once."""
+    # both ranks on one card, whatever the machine has: gloo
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    procs = {op: subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gloo-probe", op],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for op in GLOO_PROBES}
+    found = {}
+    for op, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+        lines = [ln for ln in out.splitlines() if ln.startswith(CHILD_PREFIX)]
+        if proc.returncode == 0 and len(lines) == 1:
+            ranks = json.loads(lines[0][len(CHILD_PREFIX):])
+            found[op] = "ok" if set(ranks) == {"ok"} else "; ".join(ranks)
+        else:
+            tail = (err.strip().splitlines() or ["no output"])[-1]
+            found[op] = f"exit {proc.returncode}: {tail[:300]}"
+    return found
+
+
 def serve_child(spec: dict) -> int:
     """The child of the shard phase's replica: ``serve.build_server``
     (rank 0 of ``--tp`` ranks) under the grant in the environment, the
@@ -2474,7 +3255,7 @@ def compare(parent: Path, out_dir: Path) -> int:
 
 
 PHASES = ("card", "build", "kernels", "train", "moe", "serve", "shard",
-          "entry", "vit")
+          "seq", "entry", "vit")
 
 
 def main(argv=None) -> int:
@@ -2491,20 +3272,22 @@ def main(argv=None) -> int:
                     "build/compare)")
     ap.add_argument("--plant", metavar="FAULTS",
                     help="comma-separated subset of " + ",".join(
-                        [*PLANTS, *SHARD_PLANTS])
+                        [*PLANTS, *SHARD_PLANTS, *SEQ_PLANTS])
                     + ": build, then run the moe replica and its token "
-                    "check (or the shard phase's dp x tp trainer and its "
-                    "check) once with each fault planted, and print what "
-                    "the check reads (exits 0 only if it refuses each)")
+                    "check (or the shard phase's dp x tp trainer, or the "
+                    "seq phase's pipeline, and its check) once with each "
+                    "fault planted, and print what the check reads (exits "
+                    "0 only if it refuses each)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--serve-child", help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     faults = [f for f in (args.plant or "").split(",") if f]
-    unknown = set(faults) - set(PLANTS) - set(SHARD_PLANTS)
+    unknown = set(faults) - set(PLANTS) - set(SHARD_PLANTS) - set(SEQ_PLANTS)
     if unknown:
         ap.error(f"unknown faults {sorted(unknown)}")
     if not (ROOT / "tpushare_torch" / "__init__.py").is_file():
@@ -2516,6 +3299,8 @@ def main(argv=None) -> int:
         return child(json.loads(args.child))
     if args.serve_child is not None:
         return serve_child(json.loads(args.serve_child))
+    if args.gloo_probe is not None:
+        return gloo_probe(args.gloo_probe)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",

@@ -65,7 +65,10 @@ def test_the_scan_sees_every_module():
             "tpushare_torch/workloads/checkpoint.py",
             "tpushare_torch/workloads/migrate.py",
             "tpushare_torch/workloads/moe.py",
-            "tpushare_torch/workloads/parallel.py", "chip_smoke.py"} <= names
+            "tpushare_torch/workloads/parallel.py",
+            "tpushare_torch/workloads/ringattention.py",
+            "tpushare_torch/workloads/ulysses.py",
+            "tpushare_torch/workloads/pipeline.py", "chip_smoke.py"} <= names
     tree = ast.parse("import jax\nfrom tpushare.x import y\n"
                      "def f():\n    import triton\n")
     assert list(_imports(tree)) == [("jax", True), ("tpushare.x", True),

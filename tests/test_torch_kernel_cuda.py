@@ -368,3 +368,21 @@ def test_kernels_at_a_tp_ranks_heads_match_plain(cuda, case):
         args = _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window,
                            layout="bshd")
         _check_bwd(args, causal, window, dtype)
+
+
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_route_on_one_rank_matches_the_fold(cuda, zigzag):
+    # one rank: the ring is its own chunk, the diagonal (zigzag: two
+    # halves, three K1 calls); the card's route against the plain fold
+    from tpushare_torch.workloads import ringattention as ra
+    q, k, v = _qkv(cuda, 1, 8, 2, 512, 128, torch.bfloat16, seed=5)
+    before = flash.LAUNCHES
+    with torch.inference_mode():
+        got = ra.ring_attention(q, k, v, None, zigzag=zigzag)
+        want = ra._ring_fold(q, k, v, None, "sp", True, zigzag)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES - before == (3 if zigzag else 1)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    # forward only: a gradient asked of the card's route names its item
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ra.ring_attention(q.requires_grad_(), k, v, None)

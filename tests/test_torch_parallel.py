@@ -160,6 +160,7 @@ def test_placements_of_a_spec():
 
 
 def test_transport_rule(monkeypatch):
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     assert parallel.transport("cpu", 4) == "gloo"
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert parallel.transport("cuda", 4) == "nccl"
@@ -168,6 +169,27 @@ def test_transport_rule(monkeypatch):
     assert parallel.transport("cuda", 4) == "gloo"
     assert parallel.most_square(8) == (2, 4)
     assert parallel.most_square(7) == (1, 7)
+
+
+def test_transport_rule_counts_one_hosts_ranks(monkeypatch):
+    # a gang of 2 hosts x 4 cards: world 8, 4 ranks on each host, a card
+    # each, so NCCL; the world alone against the host's 4 cards would
+    # have picked gloo
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert parallel.transport("cuda", 8, local_world=4) == "nccl"
+    assert parallel.transport("cuda", 8) == "gloo"
+    # torchrun's count of the ranks on this host
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert parallel.transport("cuda", 8) == "nccl"
+    # two members sharing one host's 4 cards with 4 ranks each: gloo
+    assert parallel.transport("cuda", 8, local_world=8) == "gloo"
+    # each host's ranks take its cards in order
+    assert [parallel.rank_device("cuda", r, 4).index
+            for r in range(8)] == [0, 1, 2, 3, 0, 1, 2, 3]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert parallel.rank_device("cuda", 5, 8) == torch.device("cuda", 0)
+    assert parallel.rank_device("cpu", 5) == torch.device("cpu")
 
 
 DRAWS = [((3, 8, 12), P(None, None, "tp"), True),     # column-parallel
@@ -369,3 +391,45 @@ def test_init_params_on_a_mesh_keeps_the_shards_of_one_draw(world):
     ranks, _ = world
     for r in ranks:
         assert r["init_int8=False"] and r["init_int8=True"]
+
+
+def _tp_peer(rank, step):
+    """The global rank ``step`` places along "tp" from ``rank`` on the
+    (2, 4) mesh (rows of 4 ranks)."""
+    return rank // 4 * 4 + (rank % 4 + step) % 4
+
+
+@pytest.mark.parametrize("perm", ["ring", "chain"])
+def test_ppermute_and_its_backward_match_numpy(world, perm):
+    ranks, _ = world
+    for r, res in enumerate(ranks):
+        y, grad = res["p2p"][perm]
+        tp = r % 4
+        src, dst = _tp_peer(r, -1), _tp_peer(r, 1)
+        want_y = (np.arange(6.0) + 100 * src).reshape(2, 3)
+        want_g = np.full((2, 3), dst + 1.0)
+        if perm == "chain":
+            # no source for the first, no target for the last
+            want_y = want_y if tp > 0 else np.zeros((2, 3))
+            want_g = want_g if tp < 3 else np.zeros((2, 3))
+        np.testing.assert_array_equal(y, want_y)
+        np.testing.assert_array_equal(grad, want_g)
+
+
+def test_all_to_all_and_its_backward_match_numpy(world):
+    ranks, _ = world
+    for r, res in enumerate(ranks):
+        got, grad = res["p2p"]["all_to_all"]
+        tp, row = r % 4, r // 4 * 4
+        a = {s: np.arange(48.0).reshape(2, 8, 3) + 1000 * (row + s)
+             for s in range(4)}
+        # tile tp of each source rank along dim 1, concatenated on dim 2
+        want = np.concatenate([a[s][:, 2 * tp:2 * tp + 2] for s in range(4)],
+                              axis=2)
+        np.testing.assert_array_equal(got, want)
+        # the backward: the inverse all-to-all of each rank's cotangent
+        cot = {t: np.arange(48.0).reshape(2, 2, 12) * (row + t + 1)
+               for t in range(4)}
+        want_g = np.concatenate([cot[t][:, :, 3 * tp:3 * tp + 3]
+                                 for t in range(4)], axis=1)
+        np.testing.assert_array_equal(grad, want_g)

@@ -8,7 +8,8 @@ multi-device dry run, on the CPU.
   8 gloo ranks for the file (tests/torch_ranks.py:sharded_checks).
 - ``serve --tp 2 --device cpu`` answers over HTTP with the JAX
   package's ``greedy_decode_kv`` tokens on the same weights.
-- ``dryrun_multichip(8)`` runs its three layouts over 8 gloo ranks.
+- ``dryrun_multichip(8)`` runs its layouts over 8 gloo ranks: dp x tp,
+  ring attention and Ulysses, ep, the pipeline, and the ViT.
 """
 
 import dataclasses
@@ -174,8 +175,19 @@ def test_engine_under_tp_names_its_roadmap_item():
 
 
 def test_dryrun_multichip_on_eight_ranks(capsys):
+    import re
     line = dryrun_multichip(8, device="cpu")
     assert line.startswith("dryrun_multichip ok: dp=2 x tp=4 loss=")
     assert "ep moe loss=" in line and "vit dp x tp loss=" in line
-    assert "item 13" in line and "nan" not in line
+    assert "nan" not in line and "not ported" not in line
     assert line in capsys.readouterr().out
+    # the reference's sequence- and pipeline-parallel parts, within its
+    # limits (__graft_entry__.py:114-183, :214-242)
+    assert "sp ring attention x8 err=" in line and "pp x4 err=" in line
+    errs = {k: float(v) for k, v in re.findall(
+        r"([a-z0-9-]+) err=([0-9.e+-]+)", line)}
+    limits = {"x8": 1e-4, "gqa-ring": 1e-4, "zigzag": 1e-4,
+              "ulysses-window": 1e-4, "x4": 1e-3}
+    assert set(errs) == set(limits)
+    for part, limit in limits.items():
+        assert errs[part] < limit, (part, errs[part])

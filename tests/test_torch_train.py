@@ -194,22 +194,116 @@ def test_player_moe_forward_on_cpu(capsys):
 
 REFUSED = [
     # --ckpt-dir supports dense presets, as in the reference (MoE state
-    # shards over "ep"); what the ported presets meet of the sharded slice
-    # is still refused, naming its item
+    # shards over "ep"); --sp ring is the reference's long-context loop,
+    # which neither trains nor runs a ViT (its ap.error); --multihost
+    # needs the gang's rendezvous env
     (["--mode", "train", "--ckpt-dir", "ckpt", "--preset",
       "llama-moe-tiny"], SystemExit, "dense presets"),
-    (["--sp", "ring"], NotImplementedError, "item 13"),
-    (["--multihost"], NotImplementedError, "item 13"),
-    (["--preset", "vit-tiny", "--multihost"], NotImplementedError,
-     "item 13"),
+    (["--sp", "ring", "--mode", "train"], SystemExit,
+     "does not train the model"),
+    (["--multihost"], RuntimeError, "COORDINATOR_ADDRESS is not set"),
+    (["--preset", "vit-tiny", "--sp", "ring"], SystemExit,
+     "llama-attention mode"),
 ]
 
 
 @pytest.mark.parametrize("extra,exc,match", REFUSED,
                          ids=["ckpt-dir", "sp-ring", "multihost", "vit"])
-def test_player_refuses_unported_flags(extra, exc, match):
-    with pytest.raises(exc, match=match):
+def test_player_refuses_unported_flags(extra, exc, match, capsys,
+                                       monkeypatch):
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(exc) as e:
         player.main(["--steps", "1", "--device", "cpu", *extra])
+    assert match in str(e.value) + capsys.readouterr().err
+
+
+def _players(argv: list, envs: list, timeout: float = 240,
+             local: int | None = None) -> list:
+    """``python -m tpushare_torch.workloads.player argv`` in one process
+    per env of ``envs`` (each added to this one's), all at once; returns
+    their stdouts, after each exited 0. With ``local``, each process
+    counts that many local ranks for a gang member (one per card)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "tpushare_torch.workloads.player"]
+    if local is not None:
+        cmd = [sys.executable, "-c",
+               "import sys; from tpushare_torch.workloads import parallel, "
+               f"player; parallel.gang_local_ranks = lambda t: {local}; "
+               "sys.exit(player.main(sys.argv[1:]))"]
+    procs = [subprocess.Popen(
+        [*cmd, *argv], cwd=root, env={**os.environ, **env},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for env in envs]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    return outs
+
+
+RING = ["--preset", "llama-tiny", "--sp", "ring", "--steps", "2", "--device",
+        "cpu"]
+
+
+def test_player_sp_ring_over_torchrun_ranks():
+    # two ranks from torchrun's env: each draws its own 256-row chunk
+    # (--seq 300 rounds up to 128-aligned chunks a rank)
+    from tpushare_torch.workloads.parallel import free_port
+    port = str(free_port())
+    outs = _players([*RING, "--seq", "300"], [
+        {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2",
+         "MASTER_ADDR": "localhost", "MASTER_PORT": port} for r in range(2)])
+    for out in outs:
+        last = out.rstrip().splitlines()[-1]
+        assert last.startswith("step 2: ") and last.endswith(
+            "ring/s (S=512 over 2 devices) on cpu"), last
+
+
+def test_player_sp_ring_on_one_process(capsys):
+    record = player.run([*RING, "--seq", "100"])
+    assert record["world"] == 1 and record["steps"] == 2
+    assert "ring/s (S=128 over 1 devices) on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["ring", "ckpt", "two-local-ranks"])
+def test_player_multihost_joins_from_the_gang_env(mode, tmp_path):
+    # two gang members as the device plugin starts them: one rank each
+    # on the CPU (world 2), or two local ranks each, as a member with
+    # two cards starts them (world 4: ranks 2p and 2p+1 on member p)
+    from tpushare_torch.workloads.parallel import free_port
+    argv = [*RING, "--multihost"] if mode != "ckpt" else [
+        "--preset", "llama-tiny", "--mode", "train", "--steps", "1",
+        "--seq", "16", "--device", "cpu", "--multihost", "--ckpt-dir",
+        str(tmp_path), "--ckpt-every", "1"]
+    local = 2 if mode == "two-local-ranks" else 1
+    addr = f"localhost:{free_port()}"
+    outs = _players(argv, [{"COORDINATOR_ADDRESS": addr, "NUM_PROCESSES": "2",
+                            "PROCESS_ID": str(p)} for p in range(2)],
+                    local=local if local > 1 else None)
+    world = 2 * local
+    for p, out in enumerate(outs):
+        for i in range(local):
+            assert (f"multihost: process {p} of 2, rank {p * local + i} of "
+                    f"world {world}, transport gloo") in out
+        assert out.rstrip().splitlines()[-1].startswith("step ")
+    if mode != "ckpt":
+        assert (f"ring/s (S={128 * world} over {world} devices) on cpu"
+                in outs[0])
+    else:
+        # both members wrote their shards of the (1, 2) mesh's step 1
+        from tpushare_torch.workloads.checkpoint import TrainCheckpointer
+        assert TrainCheckpointer(str(tmp_path)).steps() == [1]
 
 
 @pytest.mark.parametrize("extra", [["--ckpt-dir", "ckpt"],

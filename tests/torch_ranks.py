@@ -1,5 +1,7 @@
 """Rank-side halves of the port's multi-rank tests
-(tests/test_torch_parallel.py, tests/test_torch_sharded.py).
+(tests/test_torch_parallel.py, tests/test_torch_sharded.py,
+tests/test_torch_ring.py, tests/test_torch_ulysses.py,
+tests/test_torch_pipeline.py).
 
 Each function runs in every rank of a gloo world that
 ``tpushare_torch.workloads.parallel.run_ranks`` starts, with
@@ -107,6 +109,8 @@ def parallel_checks(data: dict) -> dict:
                        "mean": float(errs.mean()),
                        "w1": _spec(eparams["layers"][0]["w1"])}
 
+    out["p2p"] = _p2p_checks(mesh)
+
     # the ViT dp x tp forward (tests/test_vit.py:77)
     v = data["vit"]
     vcfg = dataclasses.replace(tv.PRESETS_VIT["vit-tiny"],
@@ -130,6 +134,26 @@ def parallel_checks(data: dict) -> dict:
             got, want, specs)
         out[f"init_int8={int8}"] = all(parallel.leaves(same))
     return out
+
+
+def _p2p_checks(mesh) -> dict:
+    """ppermute (a ring and a chain over "tp") and all_to_all over "tp"
+    on the (2, 4) mesh, forward and backward, on values that name their
+    rank; the test holds them against numpy."""
+    r = torch.distributed.get_rank()
+    w = torch.full((2, 3), float(r + 1))
+    got = {}
+    for name, perm in (("ring", [(i, (i + 1) % 4) for i in range(4)]),
+                       ("chain", [(i, i + 1) for i in range(3)])):
+        x = (torch.arange(6.0) + 100 * r).reshape(2, 3).requires_grad_()
+        y = parallel.ppermute(x, perm, mesh, "tp")
+        (y * w).sum().backward()
+        got[name] = (y.detach().numpy(), x.grad.numpy())
+    a = (torch.arange(48.0).reshape(2, 8, 3) + 1000 * r).requires_grad_()
+    b = parallel.all_to_all(a, mesh, "tp", split_dim=1, concat_dim=2)
+    (b * (torch.arange(48.0).reshape(b.shape) * (r + 1))).sum().backward()
+    got["all_to_all"] = (b.detach().numpy(), a.grad.numpy())
+    return got
 
 
 def _trained(cfg, mesh, tokens, steps=2):
@@ -276,4 +300,156 @@ def sharded_checks(data: dict) -> dict:
         "losses": first["losses"] + again["losses"]}
     if torch.distributed.get_rank() == 0:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# -- sequence and pipeline parallelism ---------------------------------------
+
+def _t(x, dtype):
+    return torch.as_tensor(np.asarray(x)).to(dtype)
+
+
+_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _sp_meshes(names=("dp", "sp")) -> dict:
+    """n -> a mesh whose last axis has n of the 4 ranks (n = 2: two
+    rings of two, each on the same inputs)."""
+    return {4: parallel.make_mesh("cpu", (4,), names[-1:]),
+            2: parallel.make_mesh("cpu", (2, 2), names)}
+
+
+def _np32(t) -> np.ndarray:
+    return t.detach().float().numpy()
+
+
+def ring_checks(data: dict) -> dict:
+    """The world of tests/test_torch_ring.py: every case's gathered
+    output (natural order), and with a ``proj`` the gradients of
+    sum(out * proj) through the fold; ``route`` "flash" runs the card's
+    route with the plain K1 (its calls counted) instead of the fold."""
+    from tpushare_torch.kernels.flash import flash_fwd
+    from tpushare_torch.workloads import ringattention as ra
+
+    meshes = _sp_meshes()
+    out = {}
+    for case in data["cases"]:
+        mesh, n = meshes[case["n"]], case["n"]
+        dt = _DTYPES[case["dtype"]]
+        q, k, v = (_t(case[x], dt) for x in "qkv")
+        S = q.shape[2]
+        zz = case.get("zigzag", False)
+        order = ra.zigzag_order(S, n) if zz else torch.arange(S)
+        local = [ra.shard_seq(x[:, :, order], mesh).clone() for x in
+                 (q, k, v)]
+        got = {}
+        if case.get("route") == "flash":
+            calls = []
+
+            def fwd(q, k, v, causal):
+                calls.append(causal)
+                return flash_fwd(q, k, v, causal=causal)
+
+            o = ra._ring_flash(*local, mesh, "sp", case["causal"], zz,
+                               fwd=fwd)
+            fold = ra._ring_fold(*local, mesh, "sp", case["causal"], zz)
+            got["fold"] = _np32(ra.gather_seq(fold, mesh)[:, :, torch.argsort(
+                order)])
+            got["calls"] = calls
+        else:
+            if "proj" in case:
+                for x in local:
+                    x.requires_grad_()
+            o = ra.ring_attention(*local, mesh, causal=case["causal"],
+                                  zigzag=zz)
+            if "proj" in case:
+                proj = ra.shard_seq(_t(case["proj"], torch.float32)[
+                    :, :, order], mesh)
+                (o.float() * proj).sum().backward()
+                got["grads"] = [_np32(ra.gather_seq(x.grad, mesh)[
+                    :, :, torch.argsort(order)]) for x in local]
+        got["out"] = _np32(ra.gather_seq(o.detach(), mesh)[
+            :, :, torch.argsort(order)])
+        got["dtype"] = str(o.dtype)
+        out[case["name"]] = got
+    return out
+
+
+def ulysses_checks(data: dict) -> dict:
+    """The world of tests/test_torch_ulysses.py: every case's gathered
+    output and, with a ``proj``, the gradients of sum(out * proj)."""
+    from tpushare_torch.workloads import ringattention as ra
+    from tpushare_torch.workloads.ulysses import ulysses_attention
+
+    meshes = _sp_meshes()
+    out = {}
+    for case in data["cases"]:
+        mesh = meshes[case["n"]]
+        local = [ra.shard_seq(_t(case[x], torch.float32), mesh).clone()
+                 for x in "qkv"]
+        grad = "proj" in case
+        for x in local:
+            x.requires_grad_(grad)
+        if case.get("ring"):
+            o = ra.ring_attention(*local, mesh, causal=case["causal"])
+        else:
+            o = ulysses_attention(*local, mesh, causal=case["causal"],
+                                  attn=case["attn"], window=case["window"])
+        got = {"out": _np32(ra.gather_seq(o.detach(), mesh))}
+        if grad:
+            proj = ra.shard_seq(_t(case["proj"], torch.float32), mesh)
+            (o * proj).sum().backward()
+            got["grads"] = [_np32(ra.gather_seq(x.grad, mesh))
+                            for x in local]
+        out[case["name"]] = got
+    return out
+
+
+def pipeline_checks(data: dict) -> dict:
+    """The world of tests/test_torch_pipeline.py: per case the pipelined
+    logits and aux, the gradients of the reference's next-token loss
+    (this rank's stage's layers, the embedding and the head), or the
+    losses of the pipelined train step, on the JAX package's weights."""
+    from tpushare_torch.workloads import pipeline as tp
+
+    meshes = _sp_meshes(("dp", "pp"))
+    out = {}
+    for case in data["cases"]:
+        mesh = meshes[case["n"]]
+        cfg = dataclasses.replace(tm.PRESETS[case["preset"]],
+                                  dtype=_DTYPES[case["dtype"]],
+                                  **case.get("cfg", {}))
+        params = params_from_numpy(case["params"])
+        tokens = torch.as_tensor(case["tokens"])
+        M = case.get("microbatches")
+        got = {}
+        if case["kind"] == "forward":
+            with torch.no_grad():
+                logits, aux = tp.pipelined_forward_with_aux(
+                    params, tokens, cfg, mesh, M)
+            got = {"logits": _np32(logits), "aux": float(aux)}
+        elif case["kind"] == "grad":
+            tparams = tm.train_params(params)
+
+            def fwd(p, t, c):
+                return tp.pipelined_forward_with_aux(p, t, c, mesh, M)
+
+            loss = tm.loss_fn(tparams, tokens, cfg, forward_fn=fwd)
+            loss.backward()
+            got = {"loss": float(loss), "grads": {
+                name: _np32(w.grad) for name, w in tm.named_leaves(tparams)
+                if w.grad is not None}}
+        else:
+            tparams = tm.train_params(tp.stage_params(params, cfg, mesh))
+            tx, step = tp.make_pipelined_train_step(
+                cfg, mesh, M, learning_rate=case["lr"])
+            opt = tx.init(tparams)
+            losses = []
+            for _ in range(case["steps"]):
+                tparams, opt, loss = step(tparams, opt, tokens)
+                losses.append(float(loss))
+            got = {"losses": losses, "stage": parallel.axis_rank(mesh, "pp"),
+                   "params": {name: _np32(w) for name, w in
+                              tm.named_leaves(tparams)}}
+        out[case["name"]] = got
     return out

@@ -10,3 +10,8 @@ ENV_HBM_LIMIT = "TPUSHARE_HBM_LIMIT_MIB"        # per-chip grant, MiB
 ENV_HBM_CHIP_TOTAL = "TPUSHARE_HBM_CHIP_TOTAL_MIB"
 # the granted box's dims ("2x2"), present for contiguous grants
 ENV_PLACEMENT_BOX = "TPUSHARE_PLACEMENT_BOX"
+# the gang rendezvous (jax.distributed's names, which the port's
+# ``parallel.init_from_gang_env`` reads for torch.distributed)
+ENV_NUM_PROCESSES = "NUM_PROCESSES"             # = gang host count
+ENV_PROCESS_ID = "PROCESS_ID"                   # = gang rank
+ENV_COORDINATOR_ADDRESS = "COORDINATOR_ADDRESS"  # host:port of member 0

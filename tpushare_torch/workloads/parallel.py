@@ -20,13 +20,28 @@ process per rank instead:
   gradient) before a column-parallel product, :func:`reduce_from`
   (all-reduce forward, identity backward) after a row-parallel one;
   :func:`gather_last` for vocab-sharded logits; :func:`dp_mean_grads`.
-- Every collective on the hot path is an ``all_reduce`` or a
-  ``broadcast``, the two calls gloo carries for CUDA tensors, so ranks
-  that share one card can run. Activations are reduced in fp32.
+- The sequence and pipeline paths move tensors between ranks:
+  :func:`ppermute` (``lax.ppermute``: each rank's tensor to its target
+  of a permutation, zeros where a rank has no source; its backward is the
+  reversed permutation) and :func:`all_to_all` (the tiled
+  ``lax.all_to_all``; its backward is the inverse all-to-all).
+  :func:`tie` keeps a tensor's backward in the graph where the forward
+  leaves it unused, so that every rank runs every collective of a
+  backward in the same order.
+- Activations are reduced in fp32. With NCCL every collective takes CUDA
+  tensors. gloo carries CUDA tensors for ``all_reduce``, ``broadcast``
+  and ``all_to_all_single``, so ranks that share one card run the
+  dp/tp/ep paths and Ulysses on them directly; its ``send``/``recv``
+  (and so ``batch_isend_irecv``) crash a rank on a CUDA tensor
+  (``chip_smoke.py``'s seq phase probes these calls), so on that
+  transport :func:`ppermute` sends and receives through host buffers.
 - :func:`transport` is the one rule for the backend: NCCL when every rank
-  has a card of its own, gloo when ranks share one (or run on the CPU).
+  of a host has a card of its own, gloo when ranks share one (or run on
+  the CPU). It counts the ranks of one host, not the world's.
 - :func:`run_ranks` starts ranks as processes of their own, each with the
   process group set up, and returns what each returned.
+  :func:`init_from_gang_env` joins a gang member's ranks from the
+  rendezvous env the device plugin injects.
 """
 
 from __future__ import annotations
@@ -302,6 +317,148 @@ def mean_over(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
     return _reduce_fp32(x.detach(), mesh.get_group(axis)) / n
 
 
+# -- moving tensors between ranks: the sequence and pipeline paths ----------
+
+def _peers(perm, n: int, r: int) -> tuple[int | None, int | None]:
+    """(source, target) of axis rank ``r`` under ``perm``, a list of
+    (source, target) pairs of axis ranks in which each rank is at most
+    once a source and once a target; None where it has none."""
+    srcs = [a for a, b in perm if b == r]
+    dsts = [b for a, b in perm if a == r]
+    if len(srcs) > 1 or len(dsts) > 1 or not all(
+            0 <= i < n for pair in perm for i in pair):
+        raise ValueError(f"perm {perm} is not a permutation of {n} ranks")
+    return (srcs[0] if srcs else None), (dsts[0] if dsts else None)
+
+
+def _send_recv(x: torch.Tensor, src, dst, group) -> torch.Tensor:
+    """Send ``x`` to axis rank ``dst`` and receive a tensor like it from
+    ``src`` (zeros without one). NCCL posts both at once on the card;
+    gloo takes host tensors for point-to-point, so a CUDA tensor goes
+    through a host buffer each way (ranks sharing a card)."""
+    out = torch.zeros_like(x)
+    x = x.contiguous()
+    nccl = dist.get_backend(group) == "nccl"
+    staged = not nccl and x.device.type != "cpu"
+    send = x.cpu() if staged else x
+    recv = torch.empty(x.shape, dtype=x.dtype) if staged else out
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, send,
+                              dist.get_global_rank(group, dst), group))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, src), group))
+    if nccl:
+        works = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        works = [op.op(op.tensor, op.peer, op.group) for op in ops]
+    for w in works:
+        w.wait()
+    if staged and src is not None:
+        out.copy_(recv)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group, n, r):
+        ctx.perm, ctx.group, ctx.n, ctx.r = perm, group, n, r
+        return _send_recv(x, *_peers(perm, n, r), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(b, a) for a, b in ctx.perm]
+        return (_send_recv(g, *_peers(back, ctx.n, ctx.r), ctx.group),
+                None, None, None, None)
+
+
+def ppermute(x: torch.Tensor, perm, mesh, axis: str) -> torch.Tensor:
+    """``lax.ppermute`` over ``axis``: this rank's ``x`` goes to its
+    target in ``perm`` ((source, target) pairs of axis ranks), and it
+    returns what its source sent, or zeros where it has none.
+    Differentiable: the gradient travels the reversed permutation. Every
+    rank of ``axis`` must call it, in the same order as the others, and
+    must reach its backward too (see :func:`tie`)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        _, dst = _peers(perm, 1, 0)
+        return x if dst == 0 else torch.zeros_like(x)
+    return _PPermute.apply(x, [tuple(p) for p in perm], mesh.get_group(axis),
+                           n, axis_rank(mesh, axis))
+
+
+def _a2a(x: torch.Tensor, group, n: int, split_dim: int,
+         concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all: tile i of ``x`` along ``split_dim`` goes to
+    rank i; the tiles received are concatenated along ``concat_dim`` in
+    rank order."""
+    shape = list(x.shape)
+    if shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(shape)} does not split "
+                         f"over {n} ranks")
+    tiles = x.reshape(*shape[:split_dim], n, shape[split_dim] // n,
+                      *shape[split_dim + 1:]).movedim(split_dim, 0)
+    tiles = tiles.contiguous()
+    got = torch.empty_like(tiles)
+    dist.all_to_all_single(got, tiles, group=group)
+    tile = list(tiles.shape[1:])
+    out = got.movedim(0, concat_dim)
+    tile[concat_dim] *= n
+    return out.reshape(tile)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = group, n, concat_dim, split_dim
+        return _a2a(x, group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x`` cut into n tiles along ``split_dim``, tile i sent to axis rank
+    i, the n tiles received concatenated along ``concat_dim`` in rank
+    order. Differentiable: the backward is the inverse all-to-all."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, mesh.get_group(axis), n, split_dim, concat_dim)
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=v)
+                     for s, d, v in ctx.others))
+
+
+def tie(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """``x``, with ``others`` joined to it in the graph (their gradient
+    from it is zero). Where a rank's forward leaves a tensor that came
+    out of a collective unused (a pipeline stage's bubble, a ring chunk
+    that is fully masked), tying it to a tensor the loss reaches keeps
+    that collective's backward in the rank's graph, so every rank posts
+    the same backward collectives in the same order and none waits on a
+    partner that never came."""
+    if not torch.is_grad_enabled():
+        return x
+    others = [o for o in others if o.requires_grad]
+    if not others:
+        return x
+    return _Tie.apply(x, *others)
+
+
 BUCKET = 1 << 26   # elements in one fp32 all-reduce of gradients
 
 
@@ -506,21 +663,32 @@ def draw(shape: tuple, generator, mult: float, dtype, spec: P | None = None,
 
 # -- ranks --------------------------------------------------------------------
 
-def transport(device_type: str, world: int) -> str:
-    """NCCL when every rank has a card of its own, gloo when ranks share
-    one card or run on the CPU (NCCL refuses two ranks on one GPU; gloo
-    carries CUDA tensors for broadcast and all_reduce)."""
-    if device_type == "cuda" and torch.cuda.device_count() >= world:
+def transport(device_type: str, world: int,
+              local_world: int | None = None) -> str:
+    """NCCL when every rank of a host has a card of its own, gloo when
+    ranks share one card or run on the CPU (NCCL refuses two ranks on one
+    GPU; see the module's note on what gloo takes on the card). It
+    counts the ranks on this host, ``local_world`` (default
+    ``$LOCAL_WORLD_SIZE`` as ``torchrun`` sets it, else ``world``, all
+    ranks on this host), against this host's cards: a gang of two hosts
+    of four cards each is world 8 and NCCL."""
+    if local_world is None:
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if device_type == "cuda" and torch.cuda.device_count() >= local_world:
         return "nccl"
     return "gloo"
 
 
-def rank_device(device_type: str, rank: int) -> torch.device:
-    """The card of ``rank``: its own where there are enough, else the one
-    they share (rank modulo the visible cards)."""
+def rank_device(device_type: str, rank: int,
+                local_world: int | None = None) -> torch.device:
+    """The card of ``rank``: by its index among this host's
+    ``local_world`` ranks (the rank itself with all ranks on this host,
+    the default), its own card where the host has enough, else the one
+    they share (modulo the visible cards)."""
     if device_type != "cuda":
         return torch.device("cpu")
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    local = rank % local_world if local_world else rank
+    return torch.device("cuda", local % torch.cuda.device_count())
 
 
 def free_port() -> int:
@@ -530,16 +698,74 @@ def free_port() -> int:
 
 
 def init_rank(rank: int, world: int, addr: str, device_type: str,
-              device: torch.device | None = None) -> str:
+              device: torch.device | None = None,
+              local_world: int | None = None) -> str:
     """Join the process group at ``addr`` (``tcp://localhost:<port>``) as
-    ``rank`` of ``world``, on ``device`` (default :func:`rank_device`);
+    ``rank`` of ``world``, on ``device`` (default :func:`rank_device`),
+    ``local_world`` of the ranks on this host (see :func:`transport`);
     returns the backend."""
-    backend = transport(device_type, world)
+    backend = transport(device_type, world, local_world)
     if device_type == "cuda":
-        torch.cuda.set_device(device or rank_device(device_type, rank))
+        torch.cuda.set_device(device or rank_device(device_type, rank,
+                                                    local_world))
     dist.init_process_group(backend, init_method=addr, world_size=world,
                             rank=rank)
     return backend
+
+
+def gang_local_ranks(device_type: str) -> int:
+    """The ranks a gang member starts: one per visible card (one on the
+    CPU)."""
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
+def init_from_gang_env(device_type: str, index: int = 0,
+                       local: int | None = None,
+                       timeout: float = 300.0) -> dict:
+    """Join a gang's process group from the rendezvous env the device
+    plugin injects into each member (``COORDINATOR_ADDRESS`` as
+    ``host:port``, ``NUM_PROCESSES``, ``PROCESS_ID``; the names of
+    :mod:`tpushare_torch.contract`), as local rank ``index`` of the
+    member's ``local`` ranks (default :func:`gang_local_ranks`): global
+    rank ``PROCESS_ID * local + index`` of world ``NUM_PROCESSES *
+    local``. The ranks first meet in a TCP store at the coordinator's
+    address and tell each other their host names; the ranks on this
+    host, against its cards, pick the transport (:func:`transport`) and
+    this rank's card. Returns ``{"rank", "world", "process",
+    "processes", "backend"}``."""
+    from datetime import timedelta
+
+    from tpushare_torch.contract import (
+        ENV_COORDINATOR_ADDRESS, ENV_NUM_PROCESSES, ENV_PROCESS_ID)
+    try:
+        addr = os.environ[ENV_COORDINATOR_ADDRESS]
+        processes = int(os.environ[ENV_NUM_PROCESSES])
+        process = int(os.environ[ENV_PROCESS_ID])
+    except KeyError as e:
+        raise RuntimeError(f"--multihost: {e.args[0]} is not set (the gang "
+                           "rendezvous env: COORDINATOR_ADDRESS, "
+                           "NUM_PROCESSES, PROCESS_ID)") from None
+    host, _, port = addr.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"{ENV_COORDINATOR_ADDRESS}={addr!r}: expected "
+                         "host:port")
+    local = local or gang_local_ranks(device_type)
+    world, rank = processes * local, process * local + index
+    if not (0 <= process < processes and 0 <= index < local):
+        raise ValueError(f"process {process} of {processes}, local rank "
+                         f"{index} of {local}")
+    store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                          timeout=timedelta(seconds=timeout))
+    store.set(f"gang/host/{rank}", socket.gethostname())
+    hosts = [store.get(f"gang/host/{r}").decode() for r in range(world)]
+    mine = [r for r in range(world) if hosts[r] == hosts[rank]]
+    backend = transport(device_type, world, len(mine))
+    if device_type == "cuda":
+        torch.cuda.set_device(rank_device(device_type, mine.index(rank)))
+    dist.init_process_group(backend, store=store, world_size=world,
+                            rank=rank, timeout=timedelta(seconds=timeout))
+    return {"rank": rank, "world": world, "process": process,
+            "processes": processes, "backend": backend}
 
 
 def make_mesh(device_type: str, shape: tuple, names: tuple = AXES):
@@ -563,7 +789,7 @@ def _rank_main(fn, rank, world, addr, device_type, args, results, env):
     os.environ.update(env)
     torch.set_num_threads(1)
     try:
-        init_rank(rank, world, addr, device_type)
+        init_rank(rank, world, addr, device_type, local_world=world)
         out = fn(*args)
         results.put((rank, "ok", out))
     except BaseException:  # noqa: BLE001 -- the parent re-raises it

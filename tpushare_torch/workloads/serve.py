@@ -487,7 +487,7 @@ def _tp_model(args, rank, world, addr, cards):
     if device_type == "cuda":
         device = torch.device("cuda", cards[rank % len(cards)])
     backend = parallel.init_rank(rank, world, addr, device_type,
-                                 device=device)
+                                 device=device, local_world=world)
     if device_type == "cuda":
         apply_memory_fraction()
     cfg = _serve_cfg(args)
@@ -546,7 +546,7 @@ def _start_tp(argv, args, world):
         if n >= world:
             cards = _flatten(compose_mesh_devices(
                 list(range(n)), os.environ.get(ENV_PLACEMENT_BOX), shape))
-        if parallel.transport(device_type, world) == "gloo":
+        if parallel.transport(device_type, world, world) == "gloo":
             # build the kernels once, here, before the ranks want them
             from tpushare_torch.kernels import build
             build.build()
