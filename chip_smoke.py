@@ -8,11 +8,14 @@
                                               # check against planted faults
     python3 chip_smoke.py --plant dp-mean,copy-to-bwd  # the shard
                                               # trainer's check, likewise
-    python3 chip_smoke.py --plant pp-embed-sum  # the seq pipeline's check
+    python3 chip_smoke.py --plant pp-embed-sum,ring-local-lse  # the seq
+                                              # pipeline's, the ring backward's
+    python3 chip_smoke.py --plant tp-engine-table  # the tp engine's checks
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. card     -- name, power limit, torch and CUDA versions; TF32 off.
+1. card     -- name, power limit, torch and CUDA versions; TF32 off; the
+               device plugin's NVML enumerator against nvidia-smi.
 2. build    -- the hand-written kernels, built from ``tpushare_torch/csrc``
                (one ``nvcc`` per source, all started together), with
                ptxas's registers, stack, spills and wgmma serialisation
@@ -53,13 +56,15 @@ Phases, each printing its own lines; any failure exits non-zero:
                prefill went through it.
 6b. shard   -- data, tensor and expert parallelism, ranks sharing the one
                card over gloo: (a) ``samples/5-serving.yaml`` as deployed,
-               the llama-8b int8 replica with ``--tp 4`` (four ranks, each
-               under the sample's 8192 MiB grant, in a child process)
-               answering HTTP requests, every prefill through K1 on every
-               rank, each prompt's first-token logits against the tp=1
-               replica of the same seed and the served tokens against its
-               uncached forward; (b) the trainer (``TrainCheckpointer.
-               resume_or_init(mesh=)`` and ``make_train_step``) at
+               the llama-8b int8 replica with ``--tp 4 --engine`` (four
+               ranks, each under the sample's 8192 MiB grant, in a child
+               process) serving the serve phase's ragged concurrent
+               traffic, every prefill through K1 on every rank, every
+               served token against the tp=1 replica's uncached forward
+               on the same seeded weights, co-tenant invariance, and
+               first-token logits against the tp=1 replica; (b) the
+               trainer (``TrainCheckpointer.resume_or_init(mesh=)`` and
+               ``make_train_step``) at
                llama-8b widths cut to 4 layers, dp=2 x tp=2 over four
                ranks for three AdamW steps on seeded random tokens with a
                checkpoint at step 2, then a second run restoring it onto a
@@ -84,7 +89,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                microbatches on seeded random tokens: logits against the
                one-process forward, three train steps held against the
                one-process trainer as in shard (b), K1, K2, K3 on every
-               stage's layers.
+               stage's layers; (e) ``ring_attention``'s forward and
+               backward at the heads and S of (a), contiguous and
+               zigzagged, K2 and K3 on every visible pair (r + 1 and
+               2n + 1 a rank, as K1), dq, dk and dv against one-process
+               ``flash_attention`` and at S = 4096 against the fp32 fold.
 7. entry    -- the llama-mini forward of ``tpushare_torch.entry`` with the
                flash kernel against the einsum path.
 8. vit      -- the ViT-B/16 fine-tune tenant of ``samples/7-vit.yaml``
@@ -118,6 +127,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -225,9 +235,18 @@ SHARD_TP = 4
 SHARD_GRANT_MIB = 8192
 SHARD_SERVE_ARGV = ["--preset", "llama-8b", "--quant", "int8",
                     "--kv-cache-dtype", "int8", "--attn", "flash", "--tp",
-                    str(SHARD_TP), "--device", "cuda", "--port", "0"]
+                    str(SHARD_TP), "--engine", "--engine-slots", "8",
+                    "--engine-max-len", "512", "--device", "cuda", "--port",
+                    "0"]
+# the prompts whose first-token logits are held against the tp=1
+# replica, and which the replica's path without its engine
+# (``TPReplica.decode``: every rank runs greedy_decode_kv in lockstep)
+# serves from the same ranks, each alone, for SHARD_DECODE_STEPS tokens
 SHARD_PROMPTS = (5, 100, 240, 450)
-SHARD_STEPS = 16
+SHARD_DECODE_STEPS = 8
+# what the tp replica's token agreement (serve._agree) raises: a planted
+# fault counts as refused only by it, or by the token or co-tenant check
+TP_AGREE_MESSAGE = "tp ranks drew different tokens"
 # first-token logits of the tp=4 replica against the tp=1 one (same
 # int8 weights, the flash prefill over an int8 cache): the row-parallel
 # products round each rank's bf16 partial sum before the fp32
@@ -235,10 +254,11 @@ SHARD_STEPS = 16
 # each layer's output, carried through 32 residual layers; a broken
 # shard or a missing all-reduce misses by the logit spread (about 4)
 SHARD_LOGIT_TOL = 0.25
-# the trainer: llama-8b widths at 4 layers (:func:`shard_config`), on B=2
-# rows of 1024 seeded random tokens, so the two dp ranks take different
-# rows
-SHARD_LAYERS = 4
+# the trainer: llama-8b widths at 2 layers (:func:`shard_config`; the
+# depth is cut so that the run's time goes to the tp replica's traffic),
+# on B=2 rows of 1024 seeded random tokens, so the two dp ranks take
+# different rows
+SHARD_LAYERS = 2
 SHARD_BATCH, SHARD_SEQ, SHARD_TOKEN_SEED = 2, 1024, 7
 SHARD_LR = 3e-4
 # the parameters of the sharded runs against the one-process trainer's,
@@ -261,7 +281,8 @@ SHARD_LOSS_TOL = 0.05
 SHARD_REF_LEAVES = ("lm_head", "final_norm", "layers.0.attn_norm",
                     "layers.0.wq", "layers.0.wk", "layers.0.wv",
                     "layers.0.wo", "layers.0.w1", "layers.0.w3",
-                    "layers.0.w2", "layers.3.w2")
+                    "layers.0.w2", "layers.1.w2")
+SHARD_ENGINE_SHAPE = "tp=4 engine prefill S=512"
 SHARD_MOE_T = 1023
 SHARD_TRAIN_SHAPE = "tp=2 train S=1023"
 
@@ -294,7 +315,24 @@ SEQ_GANG_ARGV = ["--preset", "llama-8b", "--sp", "ring", "--multihost",
 # published sliding window
 SEQ_WINDOW = 4096
 SEQ_ULYSSES_SEED = 21
+# (e) the ring's forward and backward, the same heads and S, on seeded q,
+# k, v and dO, contiguous and zigzagged: dq, dk and dv against
+# one-process flash_attention (K1-K3 through _Flash) over the whole
+# sequence. Every piece of the ring's backward leaves K2 or K3 rounded to
+# bf16 (half an ulp, 2**-9 of |piece|) before the fp32 sum across the
+# ring, and the sum is rounded once more, where one process rounds once:
+# with at most 2n + 1 = 9 pieces a tensor, and no piece larger than
+# max|grad| in these diffuse rows, under 10 * 2**-9 of max|grad|; a
+# chunk's own LSE in place of the merged one (``--plant ring-local-lse``)
+# rescales every piece's P and misses by the gradients' own size
+SEQ_GRAD_SEED = 23
+RING_GRAD_REL = 2 ** -5
+# at SEQ_FOLD_S the card's gradients against the plain fold's in fp32 on
+# the same bf16 values: the kernels' bf16 P and dS (as the kernels
+# phase's BWD_REL allows), relative to max|grad| as the forward's 2e-2
+RING_FOLD_GRAD_REL = 2e-2
 SEQ_RING_SHAPE = f"ring chunk S={SEQ_S // SEQ_RANKS}"
+SEQ_RING_HALF_SHAPE = f"ring zigzag half S={SEQ_S // SEQ_RANKS // 2}"
 SEQ_ULYSSES_SHAPE = f"ulysses heads S={SEQ_S} window {SEQ_WINDOW}"
 # (d) the GPipe pipeline at llama-8b widths, depth cut from 32 to 8
 # layers (2 a stage), pp = 4, B = 4 in M = 4 microbatches, on S = 1024
@@ -342,7 +380,55 @@ class Smoke:
             "TF32 off for matmul and cuDNN")
         self.results["card"] = {"nvidia_smi": self.smi, "kind": self.kind,
                                 "torch": torch.__version__,
-                                "cuda": torch.version.cuda}
+                                "cuda": torch.version.cuda,
+                                "nvml": self._nvml()}
+
+    def _nvml(self) -> dict:
+        """The device plugin's GPU enumerator on this host: NVML must
+        load and report every card, each under its /dev/nvidia<minor>
+        node (which exists), with nvidia-smi's memory total; torch sees a
+        little less of each (what CUDA keeps for itself)."""
+        import torch
+        from tpushare_torch.deviceplugin import (NvmlEnumerator,
+                                                 detect_enumerator)
+        nvml = NvmlEnumerator()
+        if not nvml.available():
+            raise AssertionError("NVML (libnvidia-ml.so.1) did not load")
+        chips = nvml.enumerate()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.total",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30, check=True)
+        smi_mib = [int(x) for x in smi.stdout.split()]
+        torch_mib = [torch.cuda.get_device_properties(i).total_memory / 2**20
+                     for i in range(torch.cuda.device_count())]
+        problems = []
+        if len(chips) != torch.cuda.device_count():
+            problems.append(f"{len(chips)} cards, torch sees "
+                            f"{torch.cuda.device_count()}")
+        if [c.hbm_mib for c in chips] != smi_mib:
+            problems.append(f"hbm_mib {[c.hbm_mib for c in chips]} against "
+                            f"nvidia-smi's {smi_mib}")
+        for c, t in zip(chips, torch_mib):
+            if not os.path.exists(c.device_path):
+                problems.append(f"{c.device_path} does not exist")
+            if not 0 <= c.hbm_mib - t <= 0.02 * c.hbm_mib:
+                problems.append(f"card {c.idx}: NVML {c.hbm_mib} MiB, "
+                                f"torch {t:.1f} MiB")
+        if detect_enumerator() is None:
+            problems.append("detect_enumerator found no NVML enumerator")
+        if problems:
+            raise AssertionError("NVML enumerator: " + "; ".join(problems))
+        log(f"card: NVML enumerator: {len(chips)} card(s), mesh "
+            f"{nvml.mesh.label()}: " + "; ".join(
+                f"idx {c.idx} {c.device_path} (exists) hbm_mib {c.hbm_mib} "
+                f"(nvidia-smi {m}; torch {t:.1f} MiB)"
+                for c, m, t in zip(chips, smi_mib, torch_mib)))
+        return {"count": len(chips), "mesh": nvml.mesh.label(),
+                "records": [{"idx": c.idx, "coords": list(c.coords),
+                             "hbm_mib": c.hbm_mib,
+                             "device_path": c.device_path} for c in chips],
+                "nvidia_smi_mib": smi_mib, "torch_mib": torch_mib}
 
     # -- 2. build --------------------------------------------------------------
     def build(self):
@@ -416,6 +502,10 @@ class Smoke:
                   # trainer's layers
                   *[(f"tp=4 prefill S={S}", 1, 8, 2, S, 128, bf16, True,
                      None, True) for S in (100, 450)],
+                  # the tp=4 engine's prefills are bucketed: 512 is the
+                  # bucket of its longest prompts (300 and 450 tokens)
+                  (SHARD_ENGINE_SHAPE, 1, 8, 2, 512, 128, bf16, True, None,
+                   True),
                   (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
                    True),
                   # the ring's visiting chunks (S/n rows against S/n keys:
@@ -640,8 +730,16 @@ class Smoke:
                   (MOE_TINY_SHAPE, 1, 4, 2, 127, 16, bf16, True, None, True),
                   (SHARD_TRAIN_SHAPE, 1, 16, 4, 1023, 128, bf16, True, None,
                    True),
-                  # Ulysses' head subset over the whole sequence (the ring's
-                  # chunks have no backward on the card)
+                  # the ring's backward: a visiting chunk of S/n rows and
+                  # keys (the diagonal causal, the others fully visible),
+                  # and zigzag's half pieces
+                  *[(f"{label}{'' if causal else ' non-causal'}", 1, 32, 8,
+                     rows, 128, bf16, causal, None, False)
+                    for label, rows in ((SEQ_RING_SHAPE, SEQ_S // SEQ_RANKS),
+                                        (SEQ_RING_HALF_SHAPE,
+                                         SEQ_S // SEQ_RANKS // 2))
+                    for causal in (True, False)],
+                  # Ulysses' head subset over the whole sequence
                   (SEQ_ULYSSES_SHAPE, 1, 32 // SEQ_RANKS, 8 // SEQ_RANKS,
                    SEQ_S, 128, bf16, True, SEQ_WINDOW, False),
                   (VIT_SHAPE, 32, 12, 12, 197, 64, bf16, False, None, True)]
@@ -1093,103 +1191,65 @@ class Smoke:
     def _drive(self, url, front, flash):
         import torch
         cfg = front.engine.cfg
-        rng = torch.Generator().manual_seed(7)
 
-        def prompt(n):
-            return torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+        def reset():
+            flash.LAUNCHES = 0
 
-        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
-            assert r.read() == b"ok"
-        ragged = [prompt(n) for n in (5, 37, 200)]
-        stream_p = prompt(100)
-        client_p = [prompt(300), prompt(20)]
-        solo = prompt(64)
-        mates = [prompt(n) for n in (9, 130, 450)]
-        steps = 16
-        answers: dict = {}
-
-        # -- the main path, with the launch count read around it only --
-        flash.LAUNCHES = 0
-        t_main = time.perf_counter()
-        t0 = time.perf_counter()
-        rows = post(url, {"tokens": ragged, "steps": steps})
-        batch_s = time.perf_counter() - t0
-        check_rows(ragged, rows, steps, cfg.vocab)
-        answers["batch"] = (ragged, rows)
-
-        ttft, stream_s, stream_rows = post_stream(url, stream_p, 32)
-        check_rows([stream_p], stream_rows, 32, cfg.vocab)
-        answers["stream"] = ([stream_p], stream_rows)
-
-        results: dict = {}
-
-        def client(i):
-            results[i] = post(url, {"tokens": client_p[i], "steps": steps})
-
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(2)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=600)
-        if len(results) != 2:
-            raise AssertionError("a concurrent client got no answer")
-        for i in range(2):
-            check_rows([client_p[i]], results[i], steps, cfg.vocab)
-        answers["clients"] = (client_p, [results[0][0], results[1][0]])
-
-        alone = post(url, {"tokens": [solo], "steps": 32})
-        t0 = time.perf_counter()
-        together = post(url, {"tokens": [solo] + mates, "steps": 32})
-        together_s = time.perf_counter() - t0
-        check_rows([solo] + mates, together, 32, cfg.vocab)
-        answers["together"] = ([solo] + mates, together)
-        main_s = time.perf_counter() - t_main
-        launches = flash.LAUNCHES
-        prefills = len(ragged) + 1 + 2 + 1 + 1 + len(mates)
-        # -- end of the main path --
-
-        if alone[0] != together[0]:
+        traffic = engine_traffic(url, cfg.vocab, reset,
+                                 lambda: flash.LAUNCHES)
+        launches = traffic["counts"]
+        if not traffic["cotenant_equal"]:
             raise AssertionError("co-tenant invariance: the solo request's "
                                  "tokens changed beside co-tenants")
+        prefills = traffic["requests"]
         expect = cfg.n_layers * prefills
         if launches != expect:
             raise AssertionError(f"flash_fwd launches {launches} != "
                                  f"{cfg.n_layers} layers x {prefills} "
                                  f"prefills = {expect}")
         self.launches = launches
-        decode_rate = 31 / (stream_s - ttft)
-        four_rate = 4 * 32 / together_s
         log(f"serve: {prefills} requests, flash_fwd launches {launches} "
             f"= {cfg.n_layers} x {prefills} prefills; co-tenant invariance "
             "bitwise")
         log(f"serve: one stream (prompt 100, 32 tokens): time to first "
-            f"token {ttft * 1e3:.1f} ms, then {decode_rate:.1f} decode "
-            f"tokens/s; 4 co-resident requests (32 tokens each): "
-            f"{four_rate:.1f} tokens/s over {together_s:.3f} s, their "
-            f"prefills included; ragged batch of 3: {batch_s:.3f} s")
-        margin = self._check_tokens(front.engine.params, cfg, answers)
+            f"token {traffic['ttft_s'] * 1e3:.1f} ms, then "
+            f"{traffic['stream_decode_tokens_per_s']:.1f} decode tokens/s; "
+            f"4 co-resident requests (32 tokens each): "
+            f"{traffic['four_requests_tokens_per_s']:.1f} tokens/s over "
+            f"{traffic['together_s']:.3f} s, their prefills included; "
+            f"ragged batch of 3: {traffic['batch_s']:.3f} s")
+        margin = self._check_tokens(front.engine.params, cfg,
+                                    traffic["answers"])
+        if margin > SERVE_MARGIN:
+            raise AssertionError(f"served token {margin:.3f} below the "
+                                 f"reference top logit (limit "
+                                 f"{SERVE_MARGIN})")
         mem = torch.cuda.max_memory_allocated()
         log(f"serve: served tokens within {margin:.3f} of the uncached "
             f"einsum forward's top logit (limit {SERVE_MARGIN}); "
             f"max_memory_allocated {mem / 2**30:.2f} GiB; main path "
-            f"{main_s:.1f} s")
+            f"{traffic['main_s']:.1f} s")
         metrics = urllib.request.urlopen(url + "/metrics", timeout=30).read()
         if b"tpushare_serve_tokens_generated_total" not in metrics:
             raise AssertionError("/metrics lacks the token counter")
         self.results["serve"] = {
             "requests": prefills, "launches": launches,
-            "ttft_ms": ttft * 1e3, "stream_s": stream_s,
-            "stream_decode_tokens_per_s": decode_rate,
-            "four_requests_tokens_per_s": four_rate, "batch_s": batch_s,
+            "ttft_ms": traffic["ttft_s"] * 1e3,
+            "stream_s": traffic["stream_s"],
+            "stream_decode_tokens_per_s":
+                traffic["stream_decode_tokens_per_s"],
+            "four_requests_tokens_per_s":
+                traffic["four_requests_tokens_per_s"],
+            "batch_s": traffic["batch_s"],
             "max_memory_allocated": mem, "build_peak": self.build_peak,
             "token_margin": margin,
-            "main_path_s": main_s}
+            "main_path_s": traffic["main_s"]}
 
     def _check_tokens(self, params, cfg, answers) -> float:
         """Each served greedy token against an uncached einsum forward
         over the served sequence: returns the worst gap between the
-        reference logit of the served token and the reference maximum."""
+        reference logit of the served token and the reference maximum
+        (the caller holds it to ``SERVE_MARGIN``)."""
         import dataclasses
 
         import torch
@@ -1208,10 +1268,6 @@ class Smoke:
                     gap = ref.max(dim=-1).values - ref.gather(
                         1, gen[:, None])[:, 0]
                     worst = max(worst, gap.max().item())
-        if worst > SERVE_MARGIN:
-            raise AssertionError(f"served token {worst:.3f} below the "
-                                 f"reference top logit (limit "
-                                 f"{SERVE_MARGIN})")
         return worst
 
     # -- 6b. data, tensor and expert parallelism ------------------------------
@@ -1227,16 +1283,24 @@ class Smoke:
                   "moe": self._shard_moe()}
         self.shard_launches = {
             "shard_serve": {"flash_fwd": record["serve"]["launches"]},
+            "shard_decode": {"flash_fwd":
+                             record["serve"]["decode"]["launches"]},
             "shard_train": record["train"]["launches"],
             "shard_resume": record["train"]["resume_launches"]}
         self.results["shard"] = record
 
-    def _shard_serve(self) -> dict:
-        """Sample 5's replica as deployed: ``serve --tp 4`` in a child
-        process (rank 0, which starts ranks 1-3) under the sample's grant;
-        the child drives it over HTTP. Here: its first-token logits
-        against the tp=1 replica of the same seed, and the served tokens
-        against that replica's uncached einsum forward."""
+    def _shard_serve(self, plant: str | None = None) -> dict:
+        """Sample 5's replica as deployed, with its engine: ``serve --tp 4
+        --engine`` in a child process (rank 0, which starts ranks 1-3)
+        under the sample's grant, serving the serve phase's traffic
+        (:func:`engine_traffic`), then from the same ranks the replica's
+        path without its engine, ``SHARD_PROMPTS`` each alone. Here:
+        every token of both against the tp=1 replica's uncached einsum
+        forward on the same seeded weights, co-tenant invariance, each
+        rank's K1 launches on each path and its peak, and the
+        first-token logits of ``SHARD_PROMPTS`` against the tp=1
+        replica's. With ``plant`` (:data:`SHARD_ENGINE_PLANTS`, planted
+        in rank 1) returns what the checks refused instead of raising."""
         import dataclasses
         import gc
         import tempfile
@@ -1255,29 +1319,50 @@ class Smoke:
         (ROOT / "build").mkdir(exist_ok=True)
         logits_path = Path(tempfile.mkdtemp(prefix="shard-", dir=ROOT /
                                             "build")) / "logits.pt"
-        # -- the main path: the child resets every rank's launch count
-        # to 0 just before the requests and reads them just after --
+        # -- the main paths: the child resets every rank's launch count
+        # to 0 just before each path's traffic and reads them just
+        # after --
         out = run_child_cmd(["--serve-child", json.dumps(
             {"argv": SHARD_SERVE_ARGV, "prompts": prompts,
-             "steps": SHARD_STEPS, "vocab": cfg.vocab,
-             "logits": str(logits_path)})], env)
-        # -- end of the main path --
+             "vocab": cfg.vocab, "logits": str(logits_path),
+             "plant": plant})], env)
+        # -- end of the main paths --
+        record = {"argv": SHARD_SERVE_ARGV, "grant_mib": SHARD_GRANT_MIB,
+                  "build_s": out["build_s"], "transport": out["transport"]}
+        if "refused" in out:
+            record["failures"] = [f"the replica failed its traffic: "
+                                  f"{out['refused']}"]
+            log(f"shard serve: {record['failures'][0]}")
+            return record
+        traffic, decode = out["traffic"], out["decode"]
+        failures = []
         got = torch.load(logits_path).cuda()
         logits_path.unlink()
         grant = SHARD_GRANT_MIB * 2**20
-        expect = cfg.n_layers * len(prompts)
-        for r, (built, served) in enumerate(zip(out["built_stats"],
-                                                out["stats"])):
-            if served["flash_fwd"] != expect:
-                raise AssertionError(
-                    f"shard serve: rank {r} flash_fwd launches "
-                    f"{served['flash_fwd']} != {cfg.n_layers} layers x "
-                    f"{len(prompts)} prefills")
-            peak = max(built["max_memory_allocated"],
-                       served["max_memory_allocated"])
+        launches = [s["flash_fwd"] for s in traffic["counts"]]
+        decode_launches = [s["flash_fwd"] for s in decode["counts"]]
+        peaks = [max(b["max_memory_allocated"], s["max_memory_allocated"],
+                     d["max_memory_allocated"])
+                 for b, s, d in zip(out["built_stats"], traffic["counts"],
+                                    decode["counts"])]
+        for path, counts, prefills in (("engine", launches,
+                                        traffic["requests"]),
+                                       ("decode", decode_launches,
+                                        len(prompts))):
+            for r, n in enumerate(counts):
+                if n != cfg.n_layers * prefills:
+                    failures.append(f"{path} path: rank {r} flash_fwd "
+                                    f"launches {n} != {cfg.n_layers} "
+                                    f"layers x {prefills} prefills")
+        for p, row in zip(prompts, decode["rows"]):
+            check_rows([p], [row], SHARD_DECODE_STEPS, cfg.vocab)
+        for r, peak in enumerate(peaks):
             if peak > grant:
-                raise AssertionError(f"shard serve: rank {r} peak {peak} B "
-                                     f"over the {SHARD_GRANT_MIB} MiB grant")
+                failures.append(f"rank {r} peak {peak} B over the "
+                                f"{SHARD_GRANT_MIB} MiB grant")
+        if not traffic["cotenant_equal"]:
+            failures.append("co-tenant invariance: the solo request's "
+                            "tokens changed beside co-tenants")
         # the tp=1 replica of the same seed, here, without a grant
         with torch.inference_mode():
             params = model.quantize_int8(model.init_params(
@@ -1293,46 +1378,76 @@ class Smoke:
             want = torch.cat(want)
         err = (got - want).abs().max().item()
         spread = want.abs().max().item()
-        same_first = sum(int(r[0][len(p)] == int(w.argmax()))
-                         for r, p, w in zip(out["rows"], prompts, want))
-        answers = {i: ([p], rows) for i, (p, rows) in
-                   enumerate(zip(prompts, out["rows"]))}
+        answers = {k: tuple(v) for k, v in traffic["answers"].items()}
         margin = self._check_tokens(params, cfg, answers)
+        decode_margin = self._check_tokens(
+            params, cfg, {"decode": (prompts, decode["rows"])})
         del params
         gc.collect()
         torch.cuda.empty_cache()
         if not err <= SHARD_LOGIT_TOL:
-            raise AssertionError(f"shard serve: first-token logits tp=4 vs "
-                                 f"tp=1 max|d| {err:.4g} > {SHARD_LOGIT_TOL}")
-        peaks = [max(b["max_memory_allocated"], s["max_memory_allocated"])
-                 for b, s in zip(out["built_stats"], out["stats"])]
-        log(f"shard serve: llama-8b int8 replica --tp {SHARD_TP}, four ranks "
-            f"on this card under {SHARD_GRANT_MIB} MiB each, built in "
-            f"{out['build_s']:.1f} s; {len(prompts)} requests (prompts "
-            f"{', '.join(map(str, SHARD_PROMPTS))}; {SHARD_STEPS} tokens "
-            f"each) in " + ", ".join(f"{t:.3f}" for t in out["request_s"])
-            + " s (time to first token alone: " + ", ".join(
-                f"{t * 1e3:.1f}" for t in out["prefill_s"]) + " ms)"
-            + "; flash_fwd launches per rank "
-            + ", ".join(str(s["flash_fwd"]) for s in out["stats"])
-            + f" = {cfg.n_layers} x {len(prompts)} prefills; peak allocated "
-            "per rank " + ", ".join(f"{p / 2**30:.2f}" for p in peaks)
-            + " GiB")
+            failures.append(f"first-token logits tp=4 vs tp=1 max|d| "
+                            f"{err:.4g} > {SHARD_LOGIT_TOL}")
+        for path, gap in (("engine", margin), ("decode", decode_margin)):
+            if not gap <= SERVE_MARGIN:
+                failures.append(f"{path} path: served token {gap:.3f} below"
+                                f" the tp=1 reference's top logit (limit "
+                                f"{SERVE_MARGIN})")
+        decode_rate = (SHARD_DECODE_STEPS - 1) / max(
+            decode["request_s"][-1] - decode["prefill_s"][-1], 1e-9)
+        log(f"shard serve: llama-8b int8 replica --tp {SHARD_TP} --engine "
+            f"(8 slots, max_len 512), four ranks on this card under "
+            f"{SHARD_GRANT_MIB} MiB each, built in {out['build_s']:.1f} s; "
+            f"{traffic['requests']} requests (the serve phase's traffic) in "
+            f"{traffic['main_s']:.1f} s: one stream's time to first token "
+            f"{traffic['ttft_s'] * 1e3:.1f} ms, then "
+            f"{traffic['stream_decode_tokens_per_s']:.2f} decode tokens/s; "
+            "4 co-resident requests "
+            f"{traffic['four_requests_tokens_per_s']:.2f} tokens/s over "
+            f"{traffic['together_s']:.2f} s; co-tenant invariance "
+            f"{traffic['cotenant_equal']}; flash_fwd launches "
+            "per rank " + ", ".join(map(str, launches))
+            + f" = {cfg.n_layers} x {traffic['requests']} prefills; peak "
+            "allocated per rank " + ", ".join(f"{p / 2**30:.2f}"
+                                              for p in peaks) + " GiB")
+        log(f"shard serve: the same ranks without the engine "
+            f"(TPReplica.decode): prompts "
+            f"{', '.join(map(str, SHARD_PROMPTS))}, each alone for "
+            f"{SHARD_DECODE_STEPS} tokens, in " + ", ".join(
+                f"{t:.3f}" for t in decode["request_s"])
+            + " s (a prefill alone: " + ", ".join(
+                f"{t * 1e3:.1f}" for t in decode["prefill_s"])
+            + f" ms), {decode_rate:.2f} decode tokens/s at the 450 prompt; "
+            "flash_fwd launches per rank "
+            + ", ".join(map(str, decode_launches))
+            + f" = {cfg.n_layers} x {len(prompts)} prefills")
         log(f"shard serve: first-token logits tp=4 vs tp=1 max|d| {err:.4g} "
-            f"of max|logit| {spread:.3g} (limit {SHARD_LOGIT_TOL}); first "
-            f"token equal on {same_first} of {len(prompts)}; served tokens "
-            f"within {margin:.3f} of the uncached einsum forward's top logit"
-            f" (limit {SERVE_MARGIN})")
-        return {"argv": SHARD_SERVE_ARGV, "prompts": list(SHARD_PROMPTS),
-                "launches": min(s["flash_fwd"] for s in out["stats"]),
-                "launches_per_rank": [s["flash_fwd"] for s in out["stats"]],
-                "peak_per_rank": peaks, "grant_mib": SHARD_GRANT_MIB,
-                "request_s": out["request_s"], "build_s": out["build_s"],
-                "first_token_logits_max_abs_diff": err,
-                "first_token_equal": same_first, "token_margin": margin,
-                "decode_tokens_per_s_450": (SHARD_STEPS - 1) / max(
-                    out["request_s"][-1] - out["prefill_s"][-1], 1e-9),
-                "transport": out["transport"]}
+            f"of max|logit| {spread:.3g} (limit {SHARD_LOGIT_TOL}); served "
+            f"tokens within {margin:.3f} (engine) and {decode_margin:.3f} "
+            f"(without it) of the tp=1 uncached einsum forward's top logit "
+            f"(limit {SERVE_MARGIN})")
+        record.update({
+            "prompts": list(SHARD_PROMPTS), "requests": traffic["requests"],
+            "launches": min(launches), "launches_per_rank": launches,
+            "peak_per_rank": peaks, "ttft_ms": traffic["ttft_s"] * 1e3,
+            "stream_decode_tokens_per_s":
+                traffic["stream_decode_tokens_per_s"],
+            "four_requests_tokens_per_s":
+                traffic["four_requests_tokens_per_s"],
+            "batch_s": traffic["batch_s"], "main_path_s": traffic["main_s"],
+            "cotenant_equal": traffic["cotenant_equal"],
+            "first_token_logits_max_abs_diff": err, "token_margin": margin,
+            "decode": {"steps": SHARD_DECODE_STEPS,
+                       "launches": min(decode_launches),
+                       "launches_per_rank": decode_launches,
+                       "request_s": decode["request_s"],
+                       "prefill_s": decode["prefill_s"],
+                       "decode_tokens_per_s_450": decode_rate,
+                       "token_margin": decode_margin},
+            "failures": failures})
+        if failures and plant is None:
+            raise AssertionError("shard serve: " + "; ".join(failures))
+        return record
 
     def _shard_train(self, plant: str | None = None) -> dict:
         """The trainer on dp=2 x tp=2, then restored onto (1, 4), against
@@ -1467,9 +1582,12 @@ class Smoke:
         transport = parallel.transport("cuda", SEQ_RANKS)
         log(f"seq: transport for {SEQ_RANKS} ranks: {transport} "
             f"({torch.cuda.device_count()} card(s) visible)")
-        world, ref = self._seq_world(("ring", "ulysses", "pipeline"))
+        world, ref = self._seq_world(("ring", "ring_grad", "ulysses",
+                                      "pipeline"))
         failures = []
         ring = self._seq_ring([r["ring"] for r in world], failures)
+        ring_grad = self._seq_ring_grad([r["ring_grad"] for r in world],
+                                        failures)
         uly = self._seq_ulysses([r["ulysses"] for r in world], failures)
         readings, pp_fail = seq_pipeline_judge(
             [r["pipeline"] for r in world], ref)
@@ -1482,16 +1600,21 @@ class Smoke:
         self.seq_launches = {
             "seq_ring": {"flash_fwd": ring["launches_per_rank"][-1]},
             "seq_ring_zigzag": {"flash_fwd": ring["zigzag_launches"][0]},
+            "seq_ring_grad": ring_grad["runs"][-1]["contiguous"]["launches"],
+            "seq_ring_grad_zigzag":
+                ring_grad["runs"][0]["zigzag"]["launches"],
             "seq_ulysses": uly["launches"],
             "seq_pipeline": pipe["launches"]}
         self.results["seq"] = {"gloo_cuda": probes, "transport": transport,
-                               "ring": ring, "ulysses": uly,
+                               "ring": ring, "ring_grad": ring_grad,
+                               "ulysses": uly,
                                "pipeline": pipe, "gang": gang}
 
     def _seq_world(self, parts, plant: str | None = None):
-        """The pipeline's one-process reference, then ``parts`` in one
-        world of ``SEQ_RANKS`` ranks; returns (each rank's results, the
-        reference's losses and times)."""
+        """The pipeline's one-process reference (with "pipeline" among
+        ``parts``), then ``parts`` in one world of ``SEQ_RANKS`` ranks;
+        returns (each rank's results, the reference's losses and times
+        or None)."""
         import gc
         import shutil
         import tempfile
@@ -1503,7 +1626,8 @@ class Smoke:
         work = Path(tempfile.mkdtemp(prefix="seq-", dir=ROOT / "build"))
         try:
             torch.cuda.reset_peak_memory_stats()
-            ref = pp_reference(work / "ref.pt")
+            ref = (pp_reference(work / "ref.pt") if "pipeline" in parts
+                   else None)
             gc.collect()
             torch.cuda.empty_cache()
             # -- each part resets its counts just before its main path and
@@ -1582,6 +1706,38 @@ class Smoke:
                 "zigzag_s": [run["zigzag_s"] for run in runs],
                 "fold": [run["fold"] for run in runs],
                 "peak_per_rank": [run["peak"] for run in runs]}
+
+    def _seq_ring_grad(self, runs, failures) -> dict:
+        readings, found = seq_ring_grad_judge(runs)
+        failures += found
+        n = len(runs)
+        for layout in ("contiguous", "zigzag"):
+            log(f"seq ring backward {layout}: ring_attention forward and "
+                f"backward, llama-8b heads, bf16, S={SEQ_S} over {n} ranks:"
+                " K1, K2, K3 launches per rank " + "; ".join(
+                    ", ".join(str(v) for v in run["runs"][layout]
+                              ["launches"].values()) for run in runs)
+                + " (r+1 contiguous, 2n+1 zigzag); dq, dk, dv max|d| / "
+                "max|grad| against one-process flash_attention per rank "
+                + "; ".join(", ".join(
+                    f"{e / t:.3g}" for e, t in run["runs"][layout]["errs"]
+                    .values()) for run in runs)
+                + f" (limit {RING_GRAD_REL:.4g}); forward and backward "
+                + ", ".join(f"{run['runs'][layout]['wall_s'] * 1e3:.1f}"
+                            for run in runs) + " ms a rank, first call")
+        log(f"seq ring backward: a warm call " + ", ".join(
+            f"{run['warm_s'] * 1e3:.1f}" for run in runs) + " ms a rank "
+            f"(host clock) against {runs[0]['one_ms']:.2f} ms in one "
+            "process (CUDA events); peak allocated per rank " + ", ".join(
+                f"{run['peak'] / 2**30:.2f}" for run in runs)
+            + f" GiB; at S={SEQ_FOLD_S} against the fp32 fold worst max|d|"
+            f" / max|grad| {readings['worst_rel']['fold']:.3g} (limit "
+            f"{RING_FOLD_GRAD_REL})")
+        return {"runs": [run["runs"] for run in runs],
+                "warm_s": [run["warm_s"] for run in runs],
+                "one_ms": runs[0]["one_ms"],
+                "peak_per_rank": [run["peak"] for run in runs],
+                "fold": [run["fold"] for run in runs], **readings}
 
     def _seq_ulysses(self, runs, failures) -> dict:
         want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"),
@@ -2185,6 +2341,80 @@ def call_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def engine_traffic(url: str, vocab: int, reset, read) -> dict:
+    """The serve phase's traffic against a replica with ``--engine``:
+    eleven prompts of 5-450 tokens drawn from a seeded generator (a
+    ragged batch of three and two concurrent clients for 16 tokens, a
+    streamed prompt, a prompt alone and then amid three more for 32),
+    each row checked by :func:`check_rows`. ``reset()`` is called just
+    before the first request and ``read()`` just after the last (the
+    launch counts around the main path). Returns the answers (for the token check), the
+    timings, what ``read()`` returned under "counts", and whether the
+    prompt served alone gave bitwise the tokens it gave amid the
+    others."""
+    import torch
+    rng = torch.Generator().manual_seed(7)
+
+    def prompt(n):
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+        assert r.read() == b"ok"
+    ragged = [prompt(n) for n in (5, 37, 200)]
+    stream_p = prompt(100)
+    client_p = [prompt(300), prompt(20)]
+    solo = prompt(64)
+    mates = [prompt(n) for n in (9, 130, 450)]
+    steps, long = 16, 32
+    answers: dict = {}
+
+    # -- the main path, with the counts read around it only --
+    reset()
+    t_main = time.perf_counter()
+    t0 = time.perf_counter()
+    rows = post(url, {"tokens": ragged, "steps": steps})
+    batch_s = time.perf_counter() - t0
+    check_rows(ragged, rows, steps, vocab)
+    answers["batch"] = (ragged, rows)
+
+    ttft, stream_s, stream_rows = post_stream(url, stream_p, long)
+    check_rows([stream_p], stream_rows, long, vocab)
+    answers["stream"] = ([stream_p], stream_rows)
+
+    results: dict = {}
+
+    def client(i):
+        results[i] = post(url, {"tokens": client_p[i], "steps": steps})
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    if len(results) != 2:
+        raise AssertionError("a concurrent client got no answer")
+    for i in range(2):
+        check_rows([client_p[i]], results[i], steps, vocab)
+    answers["clients"] = (client_p, [results[0][0], results[1][0]])
+
+    alone = post(url, {"tokens": [solo], "steps": long})
+    t0 = time.perf_counter()
+    together = post(url, {"tokens": [solo] + mates, "steps": long})
+    together_s = time.perf_counter() - t0
+    check_rows([solo] + mates, together, long, vocab)
+    answers["together"] = ([solo] + mates, together)
+    main_s = time.perf_counter() - t_main
+    counts = read()
+    # -- end of the main path --
+    return {"answers": answers, "counts": counts,
+            "requests": len(ragged) + 1 + 2 + 1 + 1 + len(mates),
+            "cotenant_equal": alone[0] == together[0],
+            "ttft_s": ttft, "stream_s": stream_s,
+            "stream_decode_tokens_per_s": (long - 1) / (stream_s - ttft),
+            "four_requests_tokens_per_s": 4 * long / together_s,
+            "together_s": together_s, "batch_s": batch_s, "main_s": main_s}
+
+
 def post(url: str, body: dict) -> list:
     req = urllib.request.Request(url + "/generate",
                                  data=json.dumps(body).encode(),
@@ -2394,9 +2624,11 @@ def planted(faults: list, out: str | None) -> int:
     phases: one of :data:`PLANTS` into the moe phase's replica and its
     token check, one of :data:`SHARD_PLANTS` into the shard phase's dp x
     tp trainer and its check against the one-process trainer, one of
-    :data:`SEQ_PLANTS` into the seq phase's pipeline and its check. Prints the
-    check's readings for each; exits 0 only if the check refused every
-    fault."""
+    :data:`SHARD_ENGINE_PLANTS` into a rank of the shard phase's tp engine
+    replica and its checks, one of :data:`SEQ_PLANTS` into the seq
+    phase's part that :data:`SEQ_PLANT_PARTS` names (the pipeline, the
+    ring's backward) and its check. Prints the check's readings for
+    each; exits 0 only if the check refused every fault."""
     smoke = Smoke()
     smoke.card()
     smoke.build()
@@ -2405,11 +2637,17 @@ def planted(faults: list, out: str | None) -> int:
         if name in SHARD_PLANTS:
             doc = SHARD_PLANTS[name].__doc__
             check = smoke._shard_train(plant=name)
+        elif name in SHARD_ENGINE_PLANTS:
+            doc = SHARD_ENGINE_PLANTS[name].__doc__
+            check = smoke._shard_serve(plant=name)
         elif name in SEQ_PLANTS:
             doc = SEQ_PLANTS[name].__doc__
-            world, ref = smoke._seq_world(("pipeline",), plant=name)
-            seen, failures = seq_pipeline_judge(
-                [r["pipeline"] for r in world], ref)
+            part = SEQ_PLANT_PARTS[name]
+            world, ref = smoke._seq_world((part,), plant=name)
+            runs = [r[part] for r in world]
+            seen, failures = (seq_pipeline_judge(runs, ref)
+                              if part == "pipeline"
+                              else seq_ring_grad_judge(runs))
             check = {"readings": seen, "failures": failures}
         else:
             doc = PLANTS[name].__doc__
@@ -2785,6 +3023,153 @@ def seq_ring_rank() -> dict:
             "fold": fold}
 
 
+def seq_ring_grad_rank(plant: str | None) -> dict:
+    """(e) on one rank: ``ring_attention`` forward and backward of a
+    seeded dO at ``SEQ_S``, contiguous and zigzagged (the main path, the
+    counts set to 0 just before each and read just after), each rank's
+    dq, dk and dv against one-process ``flash_attention`` over the whole
+    sequence, a warm call's time against one process's (rank 0, the
+    others waiting), and at ``SEQ_FOLD_S`` the card's gradients against
+    the plain fold's in fp32. ``plant`` (:data:`SEQ_PLANTS`) is planted
+    around the ring's calls."""
+    import torch
+    import torch.distributed as dist
+    from tpushare_torch.kernels import flash, flash_bwd
+    from tpushare_torch.workloads import parallel
+    from tpushare_torch.workloads import ringattention as ra
+    from tpushare_torch.workloads.attention import flash_attention
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    mesh = parallel.make_mesh("cuda", (n,), ("sp",))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SEQ_GRAD_SEED)
+
+    def randn(h):
+        return torch.randn(1, h, SEQ_S, 128, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    def fault():
+        return SEQ_PLANTS[plant]() if plant else contextlib.nullcontext()
+
+    q, k, v, do = randn(32), randn(8), randn(8), randn(32)
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*full, causal=True).backward(do)
+    whole = [t.grad for t in full]
+    del full
+    torch.cuda.empty_cache()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for zz in (False, True):
+        order = ra.zigzag_order(SEQ_S, n).to(dev) if zz else None
+
+        def mine(t, order=order):
+            return ra.shard_seq(t if order is None else t[:, :, order],
+                                mesh).contiguous()
+
+        local = [mine(t).requires_grad_() for t in (q, k, v)]
+        dol = mine(do)
+        torch.cuda.synchronize()
+        with fault():
+            # -- the main path --
+            flash.LAUNCHES = flash_bwd.LAUNCHES_DQ = 0
+            flash_bwd.LAUNCHES_DKDV = 0
+            t0 = time.perf_counter()
+            ra.ring_attention(*local, mesh, zigzag=zz).backward(dol)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {"flash_fwd": flash.LAUNCHES,
+                        "flash_bwd_dq": flash_bwd.LAUNCHES_DQ,
+                        "flash_bwd_dkdv": flash_bwd.LAUNCHES_DKDV}
+            # -- end of the main path --
+        errs = {}
+        for x, t, w in zip("qkv", local, whole):
+            want = mine(w).float()
+            errs[f"d{x}"] = ((t.grad.float() - want).abs().max().item(),
+                             want.abs().max().item())
+        runs["zigzag" if zz else "contiguous"] = {
+            "launches": launches, "wall_s": wall_s, "errs": errs}
+    peak = torch.cuda.max_memory_allocated()
+    # a warm call of the contiguous ring; then one process's forward and
+    # backward on rank 0 alone, the other ranks waiting
+    local = [ra.shard_seq(t, mesh).contiguous().requires_grad_()
+             for t in (q, k, v)]
+    dol = ra.shard_seq(do, mesh).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ra.ring_attention(*local, mesh).backward(dol)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    dist.barrier()
+    one_ms = None
+    if r == 0:
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        flash_attention(*full, causal=True).backward(do)
+        end.record()
+        end.synchronize()
+        one_ms = start.elapsed_time(end)
+        del full
+    dist.barrier()
+    # the card's route against the plain fold in fp32, at SEQ_FOLD_S
+    fold = {}
+    fq, fk, fv, fdo = (t[:, :, :SEQ_FOLD_S] for t in (q, k, v, do))
+    for zz in (False, True):
+        order = (ra.zigzag_order(SEQ_FOLD_S, n).to(dev) if zz
+                 else torch.arange(SEQ_FOLD_S, device=dev))
+        loc = [ra.shard_seq(t[:, :, order], mesh).contiguous()
+               for t in (fq, fk, fv)]
+        dloc = ra.shard_seq(fdo[:, :, order], mesh).contiguous()
+        card = [t.clone().requires_grad_() for t in loc]
+        with fault():
+            ra.ring_attention(*card, mesh, zigzag=zz).backward(dloc)
+        plain = [t.float().requires_grad_() for t in loc]
+        ra._ring_fold(*plain, mesh, "sp", True, zz).backward(dloc.float())
+        fold["zigzag" if zz else "contiguous"] = {
+            f"d{x}": ((a.grad.float() - b.grad).abs().max().item(),
+                      b.grad.abs().max().item())
+            for x, a, b in zip("qkv", card, plain)}
+        del card, plain
+        torch.cuda.empty_cache()
+    return {"runs": runs, "warm_s": warm_s, "one_ms": one_ms, "peak": peak,
+            "fold": fold}
+
+
+def seq_ring_grad_judge(runs: list) -> tuple[dict, list]:
+    """The ring backward's readings on every rank and what breaks a limit:
+    K1, K2 and K3 launches a call (r + 1 on rank r contiguous, 2n + 1
+    zigzagged), dq, dk and dv within ``RING_GRAD_REL`` of max|grad| of
+    one-process ``flash_attention``, and at ``SEQ_FOLD_S`` within
+    ``RING_FOLD_GRAD_REL`` of the fp32 fold's."""
+    n = len(runs)
+    failures = []
+    worst = {"one_process": 0.0, "fold": 0.0}
+    for r, run in enumerate(runs):
+        for layout, got in run["runs"].items():
+            pairs = 2 * n + 1 if layout == "zigzag" else r + 1
+            want = dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkdv"), pairs)
+            if got["launches"] != want:
+                failures.append(f"ring backward {layout}: rank {r} launches "
+                                f"{got['launches']}, expected {want}")
+            for name, (err, top) in got["errs"].items():
+                worst["one_process"] = max(worst["one_process"], err / top)
+                if not err <= RING_GRAD_REL * top:
+                    failures.append(
+                        f"ring backward {layout}: rank {r} {name} max|d| "
+                        f"{err:.4g} > {RING_GRAD_REL:.4g} x max|{name}| "
+                        f"{top:.4g} against one-process flash_attention")
+        for layout, errs in run["fold"].items():
+            for name, (err, top) in errs.items():
+                worst["fold"] = max(worst["fold"], err / top)
+                if not err <= RING_FOLD_GRAD_REL * top:
+                    failures.append(
+                        f"ring backward at S={SEQ_FOLD_S} {layout}: rank {r}"
+                        f" {name} max|d| {err:.4g} > {RING_FOLD_GRAD_REL} x "
+                        f"max|{name}| {top:.4g} against the fp32 fold")
+    return {"worst_rel": worst}, failures
+
+
 def seq_ulysses_rank() -> dict:
     """(c) on one rank: Ulysses at llama-8b heads over ``SEQ_S`` with the
     window, ``attn="flash"``, forward and backward of a seeded dO (the
@@ -2894,9 +3279,35 @@ def _plant_pp_embed_sum():
                              lambda x, mesh, axis: x)
 
 
-# faults for ``--plant`` in the seq phase's pipeline, planted in each of
-# its ranks, to read what its check sees of them
-SEQ_PLANTS = {"pp-embed-sum": _plant_pp_embed_sum}
+@contextlib.contextmanager
+def _plant_ring_local_lse():
+    """The ring's backward hands K2 and K3 each visiting chunk's own LSE
+    (K1 over that chunk alone) in place of the merged one, so each
+    chunk's P sums to 1 on its own."""
+    from unittest import mock
+
+    from tpushare_torch.kernels import flash, flash_bwd
+
+    def own_lse(kernel):
+        def run(qs, k, v, do, lse, delta, causal, window=None):
+            q = (qs.float() * qs.shape[-1] ** 0.5).to(qs.dtype)
+            lse = flash.flash_fwd(q, k, v, causal)[1]
+            return kernel(qs, k, v, do, lse, delta, causal, window)
+        return run
+
+    with mock.patch.object(flash_bwd, "flash_bwd_dq",
+                           own_lse(flash_bwd.flash_bwd_dq)), \
+            mock.patch.object(flash_bwd, "flash_bwd_dkdv",
+                              own_lse(flash_bwd.flash_bwd_dkdv)):
+        yield
+
+
+# faults for ``--plant`` in the seq phase, planted in each of its ranks
+# around the part named, to read what that part's check sees of them
+SEQ_PLANTS = {"pp-embed-sum": _plant_pp_embed_sum,
+              "ring-local-lse": _plant_ring_local_lse}
+SEQ_PLANT_PARTS = {"pp-embed-sum": "pipeline",
+                   "ring-local-lse": "ring_grad"}
 
 
 def seq_pipeline_rank(ref_path: str, plant: str | None) -> dict:
@@ -2982,22 +3393,26 @@ def seq_pipeline_rank(ref_path: str, plant: str | None) -> dict:
 
 def seq_rank(parts: list, ref_path: str | None, plant: str | None) -> dict:
     """One rank of the seq phase's world: the ``parts`` of (a) "ring",
-    (c) "ulysses" and (d) "pipeline", in that order, each leaving the
-    card's memory as it found it."""
+    (e) "ring_grad", (c) "ulysses" and (d) "pipeline", in that order,
+    each leaving the card's memory as it found it; ``plant`` goes to the
+    part :data:`SEQ_PLANT_PARTS` names."""
     import gc
 
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for part in ("ring", "ulysses", "pipeline"):
+    for part in ("ring", "ring_grad", "ulysses", "pipeline"):
         if part not in parts:
             continue
+        mine = plant if SEQ_PLANT_PARTS.get(plant) == part else None
         if part == "ring":
             out[part] = seq_ring_rank()
+        elif part == "ring_grad":
+            out[part] = seq_ring_grad_rank(mine)
         elif part == "ulysses":
             out[part] = seq_ulysses_rank()
         else:
-            out[part] = seq_pipeline_rank(ref_path, plant)
+            out[part] = seq_pipeline_rank(ref_path, mine)
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3086,53 +3501,102 @@ def gloo_probes() -> dict:
 
 def serve_child(spec: dict) -> int:
     """The child of the shard phase's replica: ``serve.build_server``
-    (rank 0 of ``--tp`` ranks) under the grant in the environment, the
-    prompts over HTTP with every rank's launch counts set to 0 just
-    before them and read just after, then the replica's first-token
-    logits of each prompt saved to ``spec["logits"]``; prints one
-    ``CHILD_RESULT`` line."""
+    (rank 0 of ``--tp`` ranks, with ``--engine``) under the grant in the
+    environment, ``spec["plant"]`` (:data:`SHARD_ENGINE_PLANTS`) planted
+    in rank 1 when given. A warm-up request, then :func:`engine_traffic`
+    with every rank's launch counts and peaks reset just before it and
+    read just after; then, from the same ranks, the path without the
+    engine (``TPReplica.decode``), each of ``spec["prompts"]`` alone for
+    ``SHARD_DECODE_STEPS`` tokens with the counts reset and read around
+    it; then the first-token logits of each prompt, timed (a prefill
+    alone), saved to ``spec["logits"]``. Prints one ``CHILD_RESULT``
+    line. A request that the ranks' token agreement fails (its message,
+    :data:`TP_AGREE_MESSAGE`, in the error) is reported as ``refused``
+    when a fault was planted; any other failure fails the child."""
+    from unittest import mock
+
     import torch
-    from tpushare_torch.workloads import serve
+    from tpushare_torch.workloads import parallel, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    plant = spec.get("plant")
     t0 = time.perf_counter()
-    httpd, replica = serve.build_server(spec["argv"])
-    build_s = time.perf_counter() - t0
-    built = replica.stats()
+    with (mock.patch.object(serve, "_tp_rank_main", _planted_tp_rank_main)
+          if plant else contextlib.nullcontext()):
+        httpd, front = serve.build_server(spec["argv"])
+    replica = front.engine.replica
+    out = {"build_s": time.perf_counter() - t0,
+           "built_stats": replica.stats(),
+           "transport": parallel.transport("cuda", len(replica._procs) + 1)}
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    times, prefill_s, rows = [], [], []
     try:
-        # a warm-up request meets the cold caches, then each prompt alone
-        # for one token (its time to first token); neither is counted
-        post(url, {"tokens": [spec["prompts"][0]], "steps": 2})
-        for p in spec["prompts"]:
-            t = time.perf_counter()
-            post(url, {"tokens": [p], "steps": 1})
-            prefill_s.append(time.perf_counter() - t)
-        replica.reset_stats()
-        for p in spec["prompts"]:
-            t = time.perf_counter()
-            got = post(url, {"tokens": [p], "steps": spec["steps"]})
-            times.append(time.perf_counter() - t)
-            check_rows([p], got, spec["steps"], spec["vocab"])
-            rows.append(got)
-        stats = replica.stats()
-        logits = torch.cat([replica.prefill_logits(torch.tensor([p]))
-                            for p in spec["prompts"]]).cpu()
-        torch.save(logits, spec["logits"])
+        try:
+            # a warm-up request meets the cold caches; it is not counted
+            post(url, {"tokens": [spec["prompts"][0]], "steps": 2})
+            out["traffic"] = engine_traffic(url, spec["vocab"],
+                                            replica.reset_stats,
+                                            replica.stats)
+        except (urllib.error.HTTPError, AssertionError) as e:
+            said = (e.read().decode() if isinstance(e, urllib.error.HTTPError)
+                    else str(e))
+            if not (plant and TP_AGREE_MESSAGE in said):
+                raise
+            out["refused"] = f"{type(e).__name__}: {e} {said}"
+        if "refused" not in out:
+            replica.reset_stats()
+            rows, request_s = [], []
+            for p in spec["prompts"]:
+                t = time.perf_counter()
+                row = replica.decode(torch.tensor([p]), SHARD_DECODE_STEPS)
+                rows.append(row[0].tolist())
+                request_s.append(time.perf_counter() - t)
+            out["decode"] = {"counts": replica.stats(), "rows": rows,
+                             "request_s": request_s, "prefill_s": []}
+            logits = []
+            for p in spec["prompts"]:
+                t = time.perf_counter()
+                logits.append(replica.prefill_logits(torch.tensor([p])).cpu())
+                out["decode"]["prefill_s"].append(time.perf_counter() - t)
+            torch.save(torch.cat(logits), spec["logits"])
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-        replica.stop()
-    from tpushare_torch.workloads import parallel
-    print(CHILD_PREFIX + json.dumps({
-        "build_s": build_s, "built_stats": built, "stats": stats,
-        "request_s": times, "prefill_s": prefill_s, "rows": rows,
-        "transport": parallel.transport("cuda", len(stats))}), flush=True)
+        front.stop()
+        front.join(timeout=120)
+    print(CHILD_PREFIX + json.dumps(out), flush=True)
     return 0
+
+
+def _planted_tp_rank_main(argv, rank, world, addr, cards) -> None:
+    """``serve._tp_rank_main`` with the shard phase's planted fault
+    (``tp-engine-table``) in rank 1."""
+    from tpushare_torch.workloads import serve
+    with (_plant_tp_engine_table() if rank == 1
+          else contextlib.nullcontext()):
+        serve._tp_rank_main(argv, rank, world, addr, cards)
+
+
+def _plant_tp_engine_table():
+    """One rank runs every decode quantum on the slot table rolled by one
+    slot (each slot takes its neighbour's last token, position, flags,
+    budget and sampling key) while the others run rank 0's."""
+    from unittest import mock
+
+    from tpushare_torch.workloads.engine import DecodeEngine
+    real = DecodeEngine.load_slot_table
+
+    def rolled(self, longs, floats):
+        real(self, longs.roll(1, dims=1), floats.roll(1, dims=1))
+
+    return mock.patch.object(DecodeEngine, "load_slot_table", rolled)
+
+
+# faults for ``--plant`` in the shard phase's tp engine replica, planted
+# in one of its ranks (rank 1), to read what its checks see of them
+SHARD_ENGINE_PLANTS = {"tp-engine-table": _plant_tp_engine_table}
 
 
 def run_child_cmd(args: list, env: dict, timeout: float = 900) -> dict:
@@ -3272,7 +3736,8 @@ def main(argv=None) -> int:
                     "build/compare)")
     ap.add_argument("--plant", metavar="FAULTS",
                     help="comma-separated subset of " + ",".join(
-                        [*PLANTS, *SHARD_PLANTS, *SEQ_PLANTS])
+                        [*PLANTS, *SHARD_PLANTS, *SHARD_ENGINE_PLANTS,
+                         *SEQ_PLANTS])
                     + ": build, then run the moe replica and its token "
                     "check (or the shard phase's dp x tp trainer, or the "
                     "seq phase's pipeline, and its check) once with each "
@@ -3287,7 +3752,8 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     faults = [f for f in (args.plant or "").split(",") if f]
-    unknown = set(faults) - set(PLANTS) - set(SHARD_PLANTS) - set(SEQ_PLANTS)
+    unknown = (set(faults) - set(PLANTS) - set(SHARD_PLANTS)
+               - set(SHARD_ENGINE_PLANTS) - set(SEQ_PLANTS))
     if unknown:
         ap.error(f"unknown faults {sorted(unknown)}")
     if not (ROOT / "tpushare_torch" / "__init__.py").is_file():

@@ -383,6 +383,30 @@ def test_ring_route_on_one_rank_matches_the_fold(cuda, zigzag):
     torch.cuda.synchronize()
     assert flash.LAUNCHES - before == (3 if zigzag else 1)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
-    # forward only: a gradient asked of the card's route names its item
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ra.ring_attention(q.requires_grad_(), k, v, None)
+
+
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_backward_on_one_rank_matches_flash_attention(cuda, zigzag):
+    # one rank: the card's route forward and backward through K1, K2 and
+    # K3 against _Flash's on the same inputs. The contiguous ring is one
+    # diagonal pair, the same launches as _Flash: bitwise. Zigzag splits
+    # the chunk into three pairs whose bf16 pieces of dq, dk and dv sum
+    # in fp32: within two bf16 roundings of max|grad| (BWD_REL's 2**-7)
+    from tpushare_torch.workloads import ringattention as ra
+    q, k, v, do = _qkv(cuda, 1, 8, 2, 512, 128, torch.bfloat16, seed=7) + [
+        torch.randn(1, 8, 512, 128, device=cuda).to(torch.bfloat16)]
+    ring = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_bwd.LAUNCHES_DQ, flash_bwd.LAUNCHES_DKDV)
+    ra.ring_attention(*ring, None, zigzag=zigzag).backward(do)
+    torch.cuda.synchronize()
+    pairs = 3 if zigzag else 1
+    assert (flash_bwd.LAUNCHES_DQ - before[0],
+            flash_bwd.LAUNCHES_DKDV - before[1]) == (pairs, pairs)
+    attention.flash_attention(*ref, causal=True).backward(do)
+    for a, b in zip(ring, ref):
+        if not zigzag:
+            assert torch.equal(a.grad, b.grad)
+        scale = b.grad.float().abs().max().item()
+        assert (a.grad.float() - b.grad.float()).abs().max().item() <= \
+            2 ** -7 * scale

@@ -9,8 +9,11 @@ three refusals. The same numpy inputs go through the JAX package's
 4 gloo ranks for the file (tests/torch_ranks.py:ring_checks; a ring of 2 is
 the (2, 2) mesh's "sp" axis). Besides: the card's route (each visiting
 chunk through the flash forward, merged by LSE) run with the plain K1 in
-its place, against the fold, with its calls counted; and gradients
-through the fold against ``jax.grad``.
+its place, against the fold, with its calls counted; gradients through
+the fold against ``jax.grad``; and gradients through the card's route
+(the plain K1, K2 and K3 in place of the kernels) against ``jax.grad``,
+causal, zigzag and non-causal, with the kernel calls and the ring's hops
+of every rank counted.
 """
 
 import jax
@@ -84,6 +87,15 @@ ROUTE = [
 ]
 
 
+# gradients of the card's route, the plain K1, K2 and K3 in the kernels'
+# place, against jax.grad of the reference's ring (fp32, GQA, S = 256
+# over 4 ranks): name, seed, causal, zigzag
+ROUTE_GRAD = [("route_grad_causal", 60, True, False),
+              ("route_grad_zigzag", 63, True, True),
+              ("route_grad_non_causal", 66, False, False)]
+ROUTE_GRAD_SHAPE = (1, 4, 256, 64, 2)
+
+
 def _jax_ring(q, k, v, dtype, causal, zigzag, n):
     q, k, v = (jnp.asarray(x).astype(JDT[dtype]) for x in (q, k, v))
     S = q.shape[2]
@@ -101,6 +113,16 @@ def _expanded_reference(q, k, v, dtype, causal):
     g = q.shape[1] // k.shape[1]
     return attention_reference(q, jnp.repeat(k, g, 1), jnp.repeat(v, g, 1),
                                causal=causal)
+
+
+def _jax_grads(q, k, v, proj, causal, zigzag, n=4):
+    """jax.grad of sum(ring_attention(q, k, v) * proj) over (q, k, v), in
+    natural order."""
+    def loss(q, k, v):
+        return jnp.sum(_jax_ring(q, k, v, "fp32", causal, zigzag, n) * proj)
+
+    grad = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))
+    return [np.asarray(g) for g in grad(*(jnp.asarray(x) for x in (q, k, v)))]
 
 
 @pytest.fixture(scope="module")
@@ -125,13 +147,15 @@ def world():
     proj = _randn(53, 1, 4, 32, 8)
     cases.append({"name": "grad", "q": q, "k": k, "v": v, "dtype": "fp32",
                   "causal": True, "zigzag": False, "n": 4, "proj": proj})
-    mesh = _jmesh(4)
-
-    def loss(q, k, v):
-        return jnp.sum(jra.ring_attention(q, k, v, mesh) * proj)
-
-    ref["grad"] = [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
-        *(jnp.asarray(x) for x in (q, k, v)))]
+    ref["grad"] = _jax_grads(q, k, v, proj, True, False)
+    B, H, S, D, Hkv = ROUTE_GRAD_SHAPE
+    for name, seed, causal, zz in ROUTE_GRAD:
+        q, k, v = _qkv(seed, B, H, S, D, Hkv)
+        proj = _randn(seed + 3, B, H, S, D)
+        cases.append({"name": name, "q": q, "k": k, "v": v,
+                      "dtype": "fp32", "causal": causal, "zigzag": zz,
+                      "n": 4, "proj": proj, "route": "flash"})
+        ref[name] = _jax_grads(q, k, v, proj, causal, zz)
     ranks = parallel.run_ranks(torch_ranks.ring_checks, 4, {"cases": cases},
                                timeout=300)
     return ranks, ref
@@ -158,7 +182,7 @@ def test_card_route_with_the_plain_k1_matches_the_fold(world, case):
     for rank, r in enumerate(ranks):
         got = r[name]
         np.testing.assert_allclose(got["out"], got["fold"], **tol)
-        calls = got["calls"]
+        calls = got["calls"]["fwd"]
         n = 4
         if not causal:
             # every visiting chunk whole, non-causal
@@ -178,6 +202,48 @@ def test_gradients_through_the_fold_match_jax_grad(world):
     for r in ranks:
         for got, want in zip(r["grad"]["grads"], ref["grad"]):
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ROUTE_GRAD, ids=[c[0] for c in ROUTE_GRAD])
+def test_card_route_gradients_match_jax_grad(world, case):
+    # the card's route with the plain K1-K3: dq, dk, dv gathered against
+    # jax.grad of the reference (fp32: the same sums in another order),
+    # and its output against the fold's; each visible pair launches K2
+    # and K3 once, as K1 in the forward: r + 1 pairs on rank r
+    # contiguous, 2n + 1 a rank zigzagged, n a rank non-causal
+    ranks, ref = world
+    name, _, causal, zz = case
+    n = len(ranks)
+    for rank, r in enumerate(ranks):
+        got = r[name]
+        for g, want in zip(got["grads"], ref[name]):
+            np.testing.assert_allclose(g, want, atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(got["out"], got["fold"], **ROUTE_F32)
+        pairs = (2 * n + 1 if zz else rank + 1) if causal else n
+        calls = got["calls"]
+        assert len(calls["fwd"]) == len(calls["dq"]) == len(
+            calls["dkdv"]) == pairs
+        # the same pairs, diagonal (causal) or fully visible, both ways
+        assert sorted(calls["dq"]) == sorted(calls["dkdv"]) == sorted(
+            calls["fwd"])
+
+
+@pytest.mark.parametrize("case", ROUTE_GRAD, ids=[c[0] for c in ROUTE_GRAD])
+def test_card_route_posts_the_same_hops_on_every_rank(world, case):
+    # masked pairs skip launches, never hops: n - 1 k/v hops forward;
+    # backward the k/v chunk again (n - 1 hops) and its fp32 dk/dv
+    # buffer every step, the last hop taking it home, on every rank
+    ranks, _ = world
+    name = case[0]
+    n = len(ranks)
+    B, H, S, D, Hkv = ROUTE_GRAD_SHAPE
+    kv = ([2, B, Hkv, S // n, D], "torch.float32")
+    want = [kv] * (n - 1) + [kv, kv] * (n - 1) + [kv]
+    for r in ranks:
+        got = r[name]
+        assert got["fwd_hops"] == n - 1
+        assert [tuple(h) for h in got["calls"]["hops"]] == [
+            (shape, dt) for shape, dt in want]
 
 
 @pytest.mark.parametrize("S,n", [(32, 4), (48, 2), (64, 8), (16, 1)])

@@ -236,9 +236,10 @@ def test_moe_replica_serves_the_reference_greedy_decode_kv():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    # --tp 2 serves (tests/test_torch_sharded.py); continuous batching
-    # under it does not yet
-    (["--tp", "2", "--engine"], NotImplementedError, "Queue 1 item 16"),
+    # --tp 2 serves, with --engine too (tests/test_torch_sharded.py,
+    # tests/test_torch_tp_engine.py); its usage errors come first
+    (["--tp", "2", "--engine", "--no-kv-cache"], SystemExit,
+     "--engine requires a KV-cached path"),
     (["--preset", "llama-moe-tiny", "--engine"], SystemExit,
      "--engine excludes MoE presets"),
 ])

@@ -7,7 +7,8 @@ multi-device dry run, on the CPU.
   :210, :225 are the reference's counterparts). These run in one world of
   8 gloo ranks for the file (tests/torch_ranks.py:sharded_checks).
 - ``serve --tp 2 --device cpu`` answers over HTTP with the JAX
-  package's ``greedy_decode_kv`` tokens on the same weights.
+  package's ``greedy_decode_kv`` tokens on the same weights (with
+  ``--engine``: tests/test_torch_tp_engine.py).
 - ``dryrun_multichip(8)`` runs its layouts over 8 gloo ranks: dp x tp,
   ring attention and Ulysses, ep, the pipeline, and the ViT.
 """
@@ -168,10 +169,17 @@ def test_serve_tp2_tokens_equal_the_jax_replica():
     assert got == want
 
 
-def test_engine_under_tp_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
+def test_engine_usage_errors_under_tp_come_before_the_ranks(capsys,
+                                                            monkeypatch):
+    # --engine serves under --tp (tests/test_torch_tp_engine.py); a usage
+    # error of its flags exits before any rank is started
+    monkeypatch.setattr(serve, "_start_tp", None)
+    with pytest.raises(SystemExit):
         serve.build_server(["--preset", "llama-tiny", "--tp", "2",
-                            "--engine", "--device", "cpu", "--port", "0"])
+                            "--engine", "--attn-window", "8", "--rolling-kv",
+                            "--engine-max-len", "8", "--device", "cpu",
+                            "--port", "0"])
+    assert "--engine-max-len >= 2*attn-window" in capsys.readouterr().err
 
 
 def test_dryrun_multichip_on_eight_ranks(capsys):

@@ -13,8 +13,10 @@ no JAX, so that a spawned rank never pays for importing it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import shutil
+from unittest import mock
 
 import numpy as np
 import torch
@@ -323,12 +325,26 @@ def _np32(t) -> np.ndarray:
     return t.detach().float().numpy()
 
 
+def _recording(module, name: str, log: list, what):
+    """``module.name`` patched to append ``what(*args, **kwargs)`` to
+    ``log`` before each call."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        log.append(what(*args, **kwargs))
+        return real(*args, **kwargs)
+
+    return mock.patch.object(module, name, wrapper)
+
+
 def ring_checks(data: dict) -> dict:
     """The world of tests/test_torch_ring.py: every case's gathered
     output (natural order), and with a ``proj`` the gradients of
-    sum(out * proj) through the fold; ``route`` "flash" runs the card's
-    route with the plain K1 (its calls counted) instead of the fold."""
-    from tpushare_torch.kernels.flash import flash_fwd
+    sum(out * proj). ``route`` "flash" runs the card's route with the
+    plain K1, K2 and K3 (their calls and this rank's hops recorded) and
+    the fold beside it; otherwise ``ring_attention`` (the fold, on CPU
+    tensors)."""
+    from tpushare_torch.kernels import flash, flash_bwd
     from tpushare_torch.workloads import ringattention as ra
 
     meshes = _sp_meshes()
@@ -342,32 +358,40 @@ def ring_checks(data: dict) -> dict:
         order = ra.zigzag_order(S, n) if zz else torch.arange(S)
         local = [ra.shard_seq(x[:, :, order], mesh).clone() for x in
                  (q, k, v)]
+        if "proj" in case:
+            for x in local:
+                x.requires_grad_()
         got = {}
-        if case.get("route") == "flash":
-            calls = []
-
-            def fwd(q, k, v, causal):
-                calls.append(causal)
-                return flash_fwd(q, k, v, causal=causal)
-
-            o = ra._ring_flash(*local, mesh, "sp", case["causal"], zz,
-                               fwd=fwd)
-            fold = ra._ring_fold(*local, mesh, "sp", case["causal"], zz)
-            got["fold"] = _np32(ra.gather_seq(fold, mesh)[:, :, torch.argsort(
-                order)])
-            got["calls"] = calls
-        else:
-            if "proj" in case:
-                for x in local:
-                    x.requires_grad_()
-            o = ra.ring_attention(*local, mesh, causal=case["causal"],
-                                  zigzag=zz)
+        with contextlib.ExitStack() as stack:
+            if case.get("route") == "flash":
+                calls = {"fwd": [], "dq": [], "dkdv": [], "hops": []}
+                for module, name, key, what in (
+                        (flash, "flash_fwd", "fwd",
+                         lambda *a, causal: causal),
+                        (flash_bwd, "flash_bwd_dq", "dq", lambda *a: a[-1]),
+                        (flash_bwd, "flash_bwd_dkdv", "dkdv",
+                         lambda *a: a[-1]),
+                        (parallel, "ppermute", "hops",
+                         lambda x, *a: (list(x.shape), str(x.dtype)))):
+                    stack.enter_context(_recording(module, name,
+                                                   calls[key], what))
+                o = ra._ring_flash(*local, mesh, "sp", case["causal"], zz)
+                got["fwd_hops"] = len(calls["hops"])
+            else:
+                o = ra.ring_attention(*local, mesh, causal=case["causal"],
+                                      zigzag=zz)
             if "proj" in case:
                 proj = ra.shard_seq(_t(case["proj"], torch.float32)[
                     :, :, order], mesh)
                 (o.float() * proj).sum().backward()
                 got["grads"] = [_np32(ra.gather_seq(x.grad, mesh)[
                     :, :, torch.argsort(order)]) for x in local]
+        if case.get("route") == "flash":
+            got["calls"] = calls
+            with torch.no_grad():
+                fold = ra._ring_fold(*local, mesh, "sp", case["causal"], zz)
+            got["fold"] = _np32(ra.gather_seq(fold, mesh)[:, :, torch.argsort(
+                order)])
         got["out"] = _np32(ra.gather_seq(o.detach(), mesh)[
             :, :, torch.argsort(order)])
         got["dtype"] = str(o.dtype)
@@ -453,3 +477,73 @@ def pipeline_checks(data: dict) -> dict:
                               tm.named_leaves(tparams)}}
         out[case["name"]] = got
     return out
+
+
+# -- continuous batching under tensor parallelism -----------------------------
+
+FP32_ENGINE = {"max_slots": 4, "max_len": 32, "quantum": 3}
+ENGINE_PROMPTS = {"a": [5, 9], "b": [100, 2, 77, 31, 8, 4, 19],
+                  "c": [240] * 11, "d": [7, 8]}
+
+
+def engine_streams(engine) -> dict:
+    """A ragged run (the port's or the JAX package's engine): a and b in
+    flight, c joins one quantum later (d beside it, greedy, where the
+    engine samples per request); returns {name: tokens}."""
+    per_request = getattr(engine, "_per_request", False)
+    rids = {k: engine.submit(ENGINE_PROMPTS[k], 8,
+                             **({"temperature": 1.0, "top_p": 0.95}
+                                if per_request else {}))
+            for k in ("a", "b")}
+    out = dict(engine.run_quantum())
+    rids["c"] = engine.submit(ENGINE_PROMPTS["c"], 7)
+    if per_request:
+        rids["d"] = engine.submit(ENGINE_PROMPTS["d"], 9, temperature=0.0)
+    out.update(engine.drain())
+    return {k: [int(t) for t in out[r]] for k, r in rids.items()}
+
+
+def tp_engine_checks(data: dict) -> dict:
+    """The fp32 world of tests/test_torch_tp_engine.py: each run of
+    ``data["runs"]`` (name -> the engine's sampling arguments) through
+    the tp replica's engine protocol on a (1, 2) mesh, rank 0's
+    ``serve._TPEngine`` broadcasting each device call, rank 1's
+    ``DecodeEngine`` following in ``serve._rank_loop`` until rank 0
+    sends the stop header. Rank 0 returns {name: streams}."""
+    from tpushare_torch.workloads import serve
+    from tpushare_torch.workloads.engine import DecodeEngine
+
+    cfg = dataclasses.replace(tm.PRESETS["llama-tiny"], dtype=torch.float32)
+    mesh = parallel.make_mesh("cpu", (1, 2))
+    params = parallel.distribute(params_from_numpy(data["params"]),
+                                 tm.param_specs(cfg), mesh)
+    device = torch.device("cpu")
+    out = {}
+    for name, kw in data["runs"].items():
+        if torch.distributed.get_rank() == 0:
+            replica = serve.TPReplica(None, device, [])
+            out[name] = engine_streams(serve._TPEngine(
+                replica, params, cfg, **FP32_ENGINE, **kw))
+            with replica.op(serve._STOP):
+                pass
+        else:
+            serve._rank_loop(None, device,
+                             DecodeEngine(params, cfg, **FP32_ENGINE, **kw))
+    return out
+
+
+
+def rolled_table_rank_main(argv, rank, world, addr, cards) -> None:
+    """``serve._tp_rank_main`` with a fault in rank 1: it runs every
+    decode quantum on the slot table rolled by one slot (each slot takes
+    its neighbour's last token, position, flags, budget and key)."""
+    from tpushare_torch.workloads import serve
+    from tpushare_torch.workloads.engine import DecodeEngine
+    real = DecodeEngine.load_slot_table
+
+    def rolled(self, longs, floats):
+        real(self, longs.roll(1, dims=1), floats.roll(1, dims=1))
+
+    with (mock.patch.object(DecodeEngine, "load_slot_table", rolled)
+          if rank == 1 else contextlib.nullcontext()):
+        serve._tp_rank_main(argv, rank, world, addr, cards)

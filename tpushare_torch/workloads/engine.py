@@ -34,6 +34,14 @@ Gumbel-max picks the sample.
 
 MoE presets stay excluded, as in the reference: capacity routing couples
 slots.
+
+Tensor parallelism: the engine runs on a rank's shards as on whole
+weights (its KV pool holds the rank's kv heads). Its two device calls,
+:meth:`DecodeEngine.prefill_slot` and :meth:`DecodeEngine.decode_quantum`,
+read only their arguments and the slot table
+(:meth:`DecodeEngine.slot_table`), so a tensor-parallel replica
+(``serve.py``) runs each on every rank from rank 0's host decisions:
+rank 0's tokens are the ones every rank feeds back.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ import dataclasses
 
 import torch
 
+from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.model import (
-    ModelConfig, forward_cached, init_kv_cache)
+    ModelConfig, forward_cached, init_kv_cache, local_heads)
 
 
 @dataclasses.dataclass
@@ -146,6 +155,8 @@ class DecodeEngine:
                 raise ValueError(f"device {want} differs from the "
                                  f"parameters' device {dev}")
         self._dev = dev
+        local, mesh = parallel.localize(params)
+        self._kv_heads = local_heads(local, cfg, mesh)[1]
         self._per_request = bool(per_request_sampling)
         self._rolling = bool(rolling)
         self._params = params
@@ -162,7 +173,8 @@ class DecodeEngine:
                                          device=dev) + 0x9E3779B9 & _M32)
 
         S = self._S
-        self._cache = init_kv_cache(cfg, S, self._M, device=dev)
+        self._cache = init_kv_cache(cfg, S, self._M, device=dev,
+                                    kv_heads=self._kv_heads)
         if rolling:
             # one ring watermark row per slot: slots advance independently
             self._cache["pos"] = torch.full((S, self._M), -1,
@@ -249,7 +261,8 @@ class DecodeEngine:
             # W-wide chunks, pads confined to the last one (the ring
             # retention contract of greedy_decode_kv's chunked prefill)
             W = cfg.attn_window
-            cache1 = init_kv_cache(cfg, 1, M, rolling=True, device=self._dev)
+            cache1 = init_kv_cache(cfg, 1, M, rolling=True, device=self._dev,
+                                   kv_heads=self._kv_heads)
             final = None
             for off in range(0, padded.shape[0], W):
                 chunk = padded[off:off + W]
@@ -258,7 +271,8 @@ class DecodeEngine:
                 if off <= plen - 1 < off + chunk.shape[0]:
                     final = logits[0, plen - 1 - off]
         else:
-            cache1 = init_kv_cache(cfg, 1, M, device=self._dev)
+            cache1 = init_kv_cache(cfg, 1, M, device=self._dev,
+                                   kv_heads=self._kv_heads)
             logits, cache1 = forward_cached(
                 self._params, padded[None], cache1, 0, cfg,
                 prefill_from_zero=True)
@@ -268,6 +282,21 @@ class DecodeEngine:
         qpos = torch.full((1,), plen - 1, dtype=torch.long, device=self._dev)
         first = self._pick(final[None], rkey, qpos, temp, topp)
         return first, cache1
+
+    @torch.inference_mode()
+    def prefill_slot(self, slot: int, padded: torch.Tensor, plen: int,
+                     rkey: torch.Tensor, temp: torch.Tensor,
+                     topp: torch.Tensor) -> torch.Tensor:
+        """The prefill's device call: prefill the padded prompt ``[bucket]``
+        and copy its one-row cache into ``slot``'s row; returns the first
+        token ``[1]``."""
+        first, cache1 = self._prefill(padded, plen, rkey, temp, topp)
+        for n, buf in self._cache.items():
+            if n == "pos":
+                buf[slot] = cache1["pos"]
+            else:
+                buf[:, slot] = cache1[n][:, 0]
+        return first
 
     # -- host API -------------------------------------------------------------
 
@@ -339,14 +368,7 @@ class DecodeEngine:
         rkey_t = torch.full((1,), rkey, dtype=torch.long, device=dev)
         temp_t = torch.full((1,), r_temp, device=dev)
         topp_t = torch.full((1,), r_topp, device=dev)
-        first, cache1 = self._prefill(padded, plen, rkey_t, temp_t, topp_t)
-
-        # the prefill's one-row cache becomes this slot's row
-        for n, buf in self._cache.items():
-            if n == "pos":
-                buf[slot] = cache1["pos"]
-            else:
-                buf[:, slot] = cache1[n][:, 0]
+        first = self.prefill_slot(slot, padded, plen, rkey_t, temp_t, topp_t)
         self._pos[slot] = plen
         self._last[slot] = first[0]
         # a prefill-time eos completes the request on the host side; the
@@ -374,8 +396,25 @@ class DecodeEngine:
         req = self._by_rid.get(rid)
         return list(req.tokens) if req is not None else None
 
+    def slot_table(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """What a decode quantum reads of the host's decisions: ``(longs
+        [6, S], floats [2, S])``, the slots' last tokens, positions,
+        active flags, remaining budgets, request keys and stop tokens,
+        then their temperatures and top-p."""
+        longs = torch.stack([self._last, self._pos, self._active.long(),
+                             self._remaining, self._rkey, self._slot_eos])
+        return longs, torch.stack([self._slot_temp, self._slot_topp])
+
+    def load_slot_table(self, longs: torch.Tensor,
+                        floats: torch.Tensor) -> None:
+        """Take another engine's :meth:`slot_table` as this one's."""
+        (self._last, self._pos, active, self._remaining, self._rkey,
+         self._slot_eos) = longs.unbind(0)
+        self._active = active.bool()
+        self._slot_temp, self._slot_topp = floats.unbind(0)
+
     @torch.inference_mode()
-    def _decode(self, k: int) -> torch.Tensor:
+    def decode_quantum(self, k: int) -> torch.Tensor:
         """k lock-step decode steps on the device; returns [k + 1, S]:
         the emitted tokens (-1 = idle lane) and, last, the active flags."""
         emitted = []
@@ -408,7 +447,7 @@ class DecodeEngine:
                 self._by_rid.pop(rid, None)
             return finished
         k = self._quantum if k is None else int(k)
-        block = self._decode(k).cpu()  # the quantum's one host sync
+        block = self.decode_quantum(k).cpu()  # the quantum's one host sync
         emitted_host, active_host = block[:-1], block[-1]
         for slot, req in list(self._by_slot.items()):
             toks = [int(t) for t in emitted_host[:, slot] if t >= 0]

@@ -20,8 +20,10 @@ port's workloads plug in:
 
 The reference's ``default_migrator`` builds the scheduler side's
 ``Migrator`` from ``tpushare.defrag``; the port imports nothing of the
-JAX package, so it waits for the cross-package wiring of the migration
-seam (ROADMAP.md Queue 1 item 15).
+JAX package and has none. That ``Migrator`` is duck-typed: built with
+``checkpointer=WorkloadCheckpointer()`` and ``frontend_for=``
+:func:`tpushare_torch.workloads.serve.frontend_for`, it drives the
+port's workloads as it does the reference's.
 """
 
 from __future__ import annotations

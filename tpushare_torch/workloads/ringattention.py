@@ -21,15 +21,17 @@ Two routes, chosen by where the tensors lie:
   folded into q in its storage dtype, fp32 scores, the clamped shift,
   p cast to v's dtype before the PV product, and the three mask classes
   (skip, masked, unmasked). It is the numerics spec, and differentiable.
-- CUDA tensors run :func:`_ring_flash`: each visiting chunk's fold is
+- CUDA tensors run :class:`_RingFlash`: each visiting chunk's fold is
   one call of the flash forward K1 (``kernels.flash.flash_fwd``: a
   fully visible chunk non-causal, the diagonal chunk causal, a masked
   one not at all), and the per-chunk (O, LSE) pairs merge in fp32 by
   their LSEs. The plain fold's fp32 scores are ``[B, Hkv, G, S/n, S/n]``:
   8 GiB a rank at S = 32768 over 4 ranks with llama-8b's heads, where
   K1 keeps one tile. Under zigzag each of the four half-chunk pairs is
-  its own class; K1 reads the half views in place. This route is
-  forward-only, as its one caller (``player --sp ring``) is.
+  its own class; K1 reads the half views in place. Its backward runs
+  the same schedule through the dq and dk/dv kernels K2 and K3, with
+  the merged LSE, and sends each chunk's fp32 dk/dv around the ring
+  behind it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
-    _online_softmax_step, validate_gqa_qkv)
+    _bwd_residuals, _online_softmax_step, validate_gqa_qkv)
 
 def _blocks(rank: int, per: int, n: int, zigzag: bool) -> list:
     """``[(row0, rows, block)]``: the pieces of rank ``rank``'s chunk of
@@ -177,41 +179,108 @@ def _merge(acc, lse, o, lse_o):
                           torch.full_like(total, float("-inf"))))
 
 
-def _ring_flash(q, k, v, mesh, axis: str, causal: bool, zigzag: bool,
-                fwd=None) -> torch.Tensor:
-    """The card's route: one flash-forward call per visible piece of each
-    visiting chunk, merged by LSE in fp32 (forward only). ``fwd(q, k, v,
-    causal) -> (O, LSE)`` defaults to ``kernels.flash.flash_fwd``: K1 on
-    CUDA tensors, its plain version on CPU ones. Without ``causal`` every
-    chunk is one non-causal call; with it, under zigzag, each pair of a
-    q half and a k half is skipped, causal (the diagonal) or non-causal
-    (fully visible)."""
-    if fwd is None:
-        from tpushare_torch.kernels.flash import flash_fwd
+def _pairs(my: int, src: int, sq: int, n: int, causal: bool,
+           zigzag: bool) -> list:
+    """``[(q0, qrows, k0, krows, diagonal)]``: the pieces of rank
+    ``my``'s q chunk and of rank ``src``'s visiting k/v chunk that meet,
+    each pair one kernel call. Without ``causal`` the whole chunks,
+    non-causal; with it, under zigzag, each pair of a q half and a k half
+    is skipped (fully masked), causal (the diagonal) or non-causal (fully
+    visible)."""
+    halves = zigzag and causal
+    return [(q0, qrows, k0, krows, causal and kblock == qblock)
+            for k0, krows, kblock in _blocks(src, sq, n, halves)
+            for q0, qrows, qblock in _blocks(my, sq, n, halves)
+            if not (causal and kblock > qblock)]
 
-        def fwd(q, k, v, causal):
-            return flash_fwd(q, k, v, causal=causal)
+
+def _ring_flash_fwd(q, k, v, mesh, axis: str, causal: bool, zigzag: bool):
+    """The card's forward: one flash-forward call (``kernels.flash.
+    flash_fwd``: K1 on CUDA tensors, its plain version on CPU ones) per
+    visible pair of each visiting chunk, merged by LSE in fp32. Returns
+    ``(out in q's dtype, merged LSE fp32 [B, H, S/n])``."""
+    from tpushare_torch.kernels import flash
 
     n, my = parallel.axis_size(mesh, axis), parallel.axis_rank(mesh, axis)
     B, H, sq, d = q.shape
     acc = torch.zeros((B, H, sq, d), device=q.device)
     lse = torch.full((B, H, sq), float("-inf"), device=q.device)
-    pieces = _blocks(my, sq, n, zigzag and causal)
     kv = torch.stack([k, v])
     for step in range(n):
-        src = (my - step) % n
-        for k0, krows, kblock in _blocks(src, sq, n, zigzag and causal):
-            kb, vb = (t.narrow(2, k0, krows) for t in kv.unbind(0))
-            for q0, qrows, qblock in pieces:
-                if causal and kblock > qblock:
-                    continue                       # fully masked
-                o, l = fwd(q.narrow(2, q0, qrows), kb, vb,
-                           causal and kblock == qblock)
-                _merge(acc.narrow(2, q0, qrows), lse.narrow(2, q0, qrows),
-                       o, l)
+        kb, vb = kv.unbind(0)
+        for q0, qrows, k0, krows, diag in _pairs(my, (my - step) % n, sq, n,
+                                                 causal, zigzag):
+            o, l = flash.flash_fwd(q.narrow(2, q0, qrows),
+                                   kb.narrow(2, k0, krows),
+                                   vb.narrow(2, k0, krows), causal=diag)
+            _merge(acc.narrow(2, q0, qrows), lse.narrow(2, q0, qrows), o, l)
         if step < n - 1:
             kv = parallel.ppermute(kv, _ring(n), mesh, axis)
-    return acc.to(q.dtype)
+    return acc.to(q.dtype), lse
+
+
+class _RingFlash(torch.autograd.Function):
+    """The card's route with its backward (the reference's ``jax.grad``
+    through ``lax.ppermute``). The forward (:func:`_ring_flash_fwd`)
+    saves q, k, v, the merged output and the merged LSE. The backward
+    runs the forward's schedule again: the k/v chunks ride the ring as
+    before, and each visible pair is one call of the dq kernel (K2) and
+    one of the dk/dv kernel (K3), both given this rank's merged LSE and
+    delta rows, never a chunk's own, under ``_Flash.backward``'s
+    conventions (``attention._bwd_residuals``). dq accumulates in fp32
+    on this rank; dk and dv accumulate in an fp32 buffer that rides the
+    ring with the chunk it belongs to, n-1 hops with it and one more
+    home. A masked pair skips its launches, never a hop, so every rank
+    posts the same hops in the same order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, causal, zigzag):
+        out, lse = _ring_flash_fwd(q, k, v, mesh, axis, causal, zigzag)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.ring = mesh, axis, causal, zigzag
+        return out
+
+    @staticmethod
+    @torch.no_grad()
+    def backward(ctx, do):
+        from tpushare_torch.kernels import flash_bwd
+
+        q, k, v, out, lse = ctx.saved_tensors
+        mesh, axis, causal, zigzag = ctx.ring
+        n, my = parallel.axis_size(mesh, axis), parallel.axis_rank(mesh, axis)
+        sq = q.shape[2]
+        qs, do, lse, delta = _bwd_residuals(q, out, lse, do.contiguous())
+        # the kernels read whole contiguous LSE and delta rows: one copy
+        # per zigzag half, none for a contiguous chunk
+        rows = {q0: (lse.narrow(2, q0, qrows).contiguous(),
+                     delta.narrow(2, q0, qrows).contiguous())
+                for q0, qrows, _ in _blocks(my, sq, n, zigzag and causal)}
+        dq = torch.zeros(q.shape, device=q.device)
+        kv = torch.stack([k, v])
+        dkv = torch.zeros(kv.shape, device=q.device)
+        for step in range(n):
+            kb, vb = kv.unbind(0)
+            for q0, qrows, k0, krows, diag in _pairs(
+                    my, (my - step) % n, sq, n, causal, zigzag):
+                args = (qs.narrow(2, q0, qrows), kb.narrow(2, k0, krows),
+                        vb.narrow(2, k0, krows), do.narrow(2, q0, qrows),
+                        *rows[q0])
+                dq.narrow(2, q0, qrows).add_(
+                    flash_bwd.flash_bwd_dq(*args, diag))
+                dk, dv = flash_bwd.flash_bwd_dkdv(*args, diag)
+                dkv[0].narrow(2, k0, krows).add_(dk)
+                dkv[1].narrow(2, k0, krows).add_(dv)
+            if step < n - 1:
+                kv = parallel.ppermute(kv, _ring(n), mesh, axis)
+            dkv = parallel.ppermute(dkv, _ring(n), mesh, axis)
+        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+                None, None, None, None)
+
+
+def _ring_flash(q, k, v, mesh, axis: str, causal: bool,
+                zigzag: bool) -> torch.Tensor:
+    """The card's route, differentiable (:class:`_RingFlash`)."""
+    return _RingFlash.apply(q, k, v, mesh, axis, causal, zigzag)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,16 +298,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     balanced instead of rank n-1 folding n visible chunks while rank 0
     folds one.
 
-    CPU tensors run the reference's fold (:func:`_ring_fold`,
-    differentiable); CUDA tensors run each chunk through K1
-    (:func:`_ring_flash`), forward only: a gradient asked of that route
-    raises ``NotImplementedError``."""
+    CPU tensors run the reference's fold (:func:`_ring_fold`); CUDA
+    tensors run each chunk through K1, and a gradient through K2 and K3
+    (:class:`_RingFlash`). Both routes are differentiable."""
     _check(q, k, v, mesh, axis, zigzag)
     if q.device.type == "cpu":
         return _ring_fold(q, k, v, mesh, axis, causal, zigzag)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "ring_attention on CUDA tensors is forward-only (each chunk "
-            "through the flash forward); its gradient is ROADMAP.md Queue 1 "
-            "item 18, ring attention backward on the card")
     return _ring_flash(q, k, v, mesh, axis, causal, zigzag)

@@ -21,18 +21,24 @@ and owns HTTP. The weights shard Megatron-style over "tp" (MoE presets:
 the experts over "ep", on the largest divisor of N that divides the
 experts, the rest to "tp"), each rank drawing the tp=1 replica's weights
 and keeping its shard, so the replica computes what the tp=1 one does.
-Rank 0 serialises the requests and broadcasts each (prompt tokens and
-steps) to the other ranks, and every rank runs ``greedy_decode_kv`` in
-lockstep. The ranks' cards follow :func:`compose_mesh_devices` over the
-granted box (``TPUSHARE_PLACEMENT_BOX``); ranks that outnumber the cards
-share them (the transport is then gloo, see
-:func:`tpushare_torch.workloads.parallel.transport`). ``--engine`` with
-``--tp`` above 1 raises NotImplementedError (ROADMAP.md Queue 1 item 16).
+Without ``--engine`` rank 0 serialises the requests and broadcasts each
+(prompt tokens and steps) to the other ranks, and every rank runs
+``greedy_decode_kv`` in lockstep. With ``--engine`` every rank holds a
+``DecodeEngine`` over its shards (its KV pool holds its kv heads); rank
+0 keeps the frontend, the queue and every host decision, and before each
+of its engine's device calls (an admitted prompt's prefill, a decode
+quantum) broadcasts the call and its inputs, the quantum's whole slot
+table included, so the other ranks run the same call. The ranks' cards
+follow :func:`compose_mesh_devices` over the granted box
+(``TPUSHARE_PLACEMENT_BOX``); ranks that outnumber the cards share them
+(the transport is then gloo, see
+:func:`tpushare_torch.workloads.parallel.transport`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -46,6 +52,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from tpushare_torch.workloads.engine import DecodeEngine
 from tpushare_torch.workloads.migrate import _pod_name
 
 
@@ -144,6 +151,9 @@ class _EngineFrontend:
         self._tokens = tokens_counter
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
+        # why the loop ended on its own (a tp replica that stopped): every
+        # request then fails with it
+        self._failure: str | None = None
         # live-migration pause: the mover parks the loop at a quantum
         # boundary so KV state is consistent while it reads it; requests
         # keep queuing while paused and drain on resume
@@ -160,6 +170,12 @@ class _EngineFrontend:
     def engine(self):
         return self._engine
 
+    @property
+    def failure(self) -> str | None:
+        """Why the engine serves no more (its tp replica stopped), or
+        None."""
+        return self._failure
+
     def start(self):
         self._thread.start()
 
@@ -168,7 +184,8 @@ class _EngineFrontend:
 
     def join(self, timeout: float | None = None):
         """Wait for the engine thread to finish its in-flight quantum and
-        observe the stop flag (bounded; the thread is a daemon)."""
+        observe the stop flag, and under ``--tp`` to stop the ranks
+        (bounded; the thread is a daemon)."""
         if self._thread.is_alive():
             self._thread.join(timeout)
 
@@ -241,11 +258,11 @@ class _EngineFrontend:
         once on stop)."""
         done, box = item[3], item[4]
         if self._stop.is_set():
-            self._fail(done, box, "server shutting down")
+            self._fail(done, box, self._failure or "server shutting down")
             return
         self._q.put(item)
         if self._stop.is_set():
-            self._fail(done, box, "server shutting down")
+            self._fail(done, box, self._failure or "server shutting down")
 
     @staticmethod
     def _fail(done, box, error: str) -> None:
@@ -272,6 +289,10 @@ class _EngineFrontend:
                 prompt, max_new, sampling, done, box = item
                 try:
                     rid = self._engine.submit(prompt, max_new, **sampling)
+                except ReplicaStopped as e:
+                    self._fail(done, box, str(e))
+                    self._end(e)
+                    break
                 except Exception as e:  # noqa: BLE001 — the engine
                     # thread must survive a bad request
                     self._fail(done, box, f"{type(e).__name__}: {e}")
@@ -280,18 +301,20 @@ class _EngineFrontend:
                     box["stream"].put(
                         ("delta", self._engine.peek_tokens(rid) or []))
                 inflight[rid] = (done, box)
-            if not inflight:
+            if not inflight or self._stop.is_set():
                 continue
             try:
                 finished = self._engine.run_quantum()
             except Exception as e:  # noqa: BLE001 — fail the residents
-                # loudly and keep serving
+                # loudly and keep serving, unless the replica stopped
                 print(f"decode engine quantum failed: "
                       f"{type(e).__name__}: {e}", file=sys.stderr,
                       flush=True)
                 for done, box in inflight.values():
                     self._fail(done, box, f"engine failure: {e}")
                 inflight.clear()
+                if isinstance(e, ReplicaStopped):
+                    self._end(e)
                 continue
             for rid, delta in self._engine.last_quantum_tokens.items():
                 done_box = inflight.get(rid)
@@ -311,16 +334,32 @@ class _EngineFrontend:
                 _p, _m, _s, done, box = self._q.get_nowait()
             except queue.Empty:
                 break
-            self._fail(done, box, "server shutting down")
+            self._fail(done, box, self._failure or "server shutting down")
         for done, box in inflight.values():
-            self._fail(done, box,
+            self._fail(done, box, self._failure or
                        "server shutting down (request interrupted)")
+        if isinstance(self._engine, _TPEngine):
+            # after the loop's last device call
+            self._engine.replica.stop()
+
+    def _end(self, e: ReplicaStopped) -> None:
+        """The replica under the engine stopped: end the loop, failing
+        every request queued now or later with ``e``."""
+        self._failure = str(e)
+        self._stop.set()
 
 
 # -- tensor-parallel replica --------------------------------------------------
-# rank 0 broadcasts [op, B, S, steps] on the model's device, then for a
-# decode the [B, S] prompt; the other ranks follow in _rank_loop
+# rank 0 broadcasts a header [op, a, b, c] on the model's device, then the
+# op's inputs; the other ranks follow in _rank_loop:
+#   _DECODE, _PREFILL   [op, B, S, steps], then the [B, S] prompt
+#   _ENGINE_PREFILL     [op, slot, bucket, plen], then the padded prompt
+#                       and the request key [bucket + 1], then its
+#                       temperature and top-p [2]
+#   _ENGINE_DECODE      [op, k, slots, 0], then the slot table: [6, slots]
+#                       longs and [2, slots] floats (DecodeEngine.slot_table)
 _STOP, _DECODE, _STATS, _RESET, _PREFILL = 0, 1, 2, 3, 4
+_ENGINE_PREFILL, _ENGINE_DECODE = 5, 6
 
 
 def tp_layout(cfg, tp: int) -> tuple[tuple, tuple]:
@@ -365,31 +404,81 @@ def _collect_stats(device) -> list[dict]:
     return [{k: int(v) for k, v in zip(keys, row)} for row in buf.tolist()]
 
 
+def _agree(block: torch.Tensor) -> None:
+    """Hold this rank's decode quantum ``block`` (tokens and active
+    flags) against rank 0's, on every rank (collective): each rank fed
+    its own tokens back into its KV shard during the quantum, so a rank
+    that drew another token would go on from a cache that no longer
+    matches the others' without any error. Raises on every rank if any
+    differs."""
+    import torch.distributed as dist
+    ref = block.clone()
+    dist.broadcast(ref, src=0)
+    bad = (ref != block).any().long().reshape(1)
+    dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+    if bad.item():
+        raise RuntimeError("tp ranks drew different tokens in a decode "
+                           "quantum: their KV shards no longer agree")
+
+
+class ReplicaStopped(RuntimeError):
+    """The tensor-parallel replica serves no more: it was stopped, or a
+    call failed and left its ranks out of step, which ended them."""
+
+
 class TPReplica:
-    """Rank 0's side of a tensor-parallel replica: one call at a time,
-    each broadcast to the other ranks, which run the same decode in
-    lockstep. ``stop`` ends the ranks and leaves the process group."""
+    """Rank 0's side of a tensor-parallel replica: one call at a time
+    (:meth:`op`), each broadcast to the other ranks, which run the same
+    decode in lockstep, or with ``--engine`` the same engine call
+    (:class:`_TPEngine`). A call that fails ends the ranks: every later
+    call raises :class:`ReplicaStopped` with the first failure.
+    ``stop`` ends the ranks and leaves the process group."""
 
     def __init__(self, decode, device, procs):
         self._decode = decode
         self.device = device
         self._procs = procs
         self._lock = threading.Lock()
-        self._stopped = False
+        # why the replica serves no more, or None while it serves
+        self.failure: str | None = None
 
-    def _header(self, op, B=0, S=0, steps=0):
+    @contextlib.contextmanager
+    def op(self, op, a=0, b=0, c=0):
+        """Hold the replica for one call: broadcast its header ``[op, a,
+        b, c]``; the body then broadcasts the call's inputs and runs rank
+        0's share. The other ranks have begun the call by then, so a
+        failure anywhere leaves them out of step: it ends them, and
+        raises :class:`ReplicaStopped`."""
         import torch.distributed as dist
-        hdr = torch.tensor([op, B, S, steps], dtype=torch.long,
-                           device=self.device)
-        dist.broadcast(hdr, src=0)
+        with self._lock:
+            if self.failure is not None:
+                raise ReplicaStopped(f"tp replica stopped: {self.failure}")
+            try:
+                dist.broadcast(torch.tensor([op, a, b, c], dtype=torch.long,
+                                            device=self.device), src=0)
+                yield
+            except Exception as e:
+                self._end(f"{type(e).__name__}: {e}", timeout=10)
+                raise ReplicaStopped(
+                    f"tp replica stopped: {self.failure}") from e
+
+    def _end(self, reason: str, timeout: float) -> None:
+        """Record ``reason``, wait for the ranks to end (kill those that
+        have not within ``timeout`` s) and leave the process group."""
+        import torch.distributed as dist
+        self.failure = reason
+        for p in self._procs:
+            p.join(timeout=timeout)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     def decode(self, tokens: torch.Tensor, steps: int) -> torch.Tensor:
         import torch.distributed as dist
-        with self._lock:
-            if self._stopped:
-                raise RuntimeError("server shutting down")
-            B, S = tokens.shape
-            self._header(_DECODE, B, S, steps)
+        B, S = tokens.shape
+        with self.op(_DECODE, B, S, steps):
             tokens = tokens.to(self.device).contiguous()
             dist.broadcast(tokens, src=0)
             return self._decode(tokens, steps)
@@ -398,9 +487,8 @@ class TPReplica:
         """The fp32 logits [B, vocab] of the first generated token: the
         replica's prefill of ``tokens`` [B, S], on every rank."""
         import torch.distributed as dist
-        with self._lock:
-            B, S = tokens.shape
-            self._header(_PREFILL, B, S)
+        B, S = tokens.shape
+        with self.op(_PREFILL, B, S):
             tokens = tokens.to(self.device).contiguous()
             dist.broadcast(tokens, src=0)
             return self._decode.prefill(tokens)
@@ -408,36 +496,57 @@ class TPReplica:
     def stats(self) -> list[dict]:
         """Per rank, in rank order: K1 and K4 launches, peak and current
         bytes allocated on its card (0 on the CPU)."""
-        with self._lock:
-            self._header(_STATS)
+        with self.op(_STATS):
             return _collect_stats(self.device)
 
     def reset_stats(self) -> None:
         """Launch counts to 0 and the peak memory statistics reset, on
         every rank."""
-        with self._lock:
-            self._header(_RESET)
+        with self.op(_RESET):
             _reset_stats(self.device)
 
     def stop(self) -> None:
-        import torch.distributed as dist
-        with self._lock:
-            if self._stopped:
-                return
-            self._stopped = True
-            self._header(_STOP)
-        for p in self._procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-        dist.destroy_process_group()
+        """End the ranks (a no-op once the replica has stopped)."""
+        with contextlib.suppress(ReplicaStopped), self.op(_STOP):
+            self._end("the server stopped it", timeout=60)
 
     def join(self, timeout: float | None = None) -> None:
         """The ranks have ended once :meth:`stop` returns."""
 
 
-def _rank_loop(decode, device) -> None:
+class _TPEngine(DecodeEngine):
+    """Rank 0's engine of a tensor-parallel replica: each device call, an
+    admitted prompt's prefill or a decode quantum, is first broadcast
+    with its inputs to the other ranks, whose engines run it on their
+    shards (:func:`_rank_loop`); the host state (queue, admissions,
+    request ids, budgets) stays here. A quantum's input is rank 0's slot
+    table, and :func:`_agree` then holds every rank's tokens against
+    rank 0's."""
+
+    def __init__(self, replica: TPReplica, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.replica = replica
+
+    def prefill_slot(self, slot, padded, plen, rkey, temp, topp):
+        import torch.distributed as dist
+        with self.replica.op(_ENGINE_PREFILL, slot, padded.shape[0], plen):
+            dist.broadcast(torch.cat([padded, rkey]), src=0)
+            dist.broadcast(torch.cat([temp, topp]), src=0)
+            return super().prefill_slot(slot, padded, plen, rkey, temp,
+                                        topp)
+
+    def decode_quantum(self, k: int) -> torch.Tensor:
+        import torch.distributed as dist
+        longs, floats = self.slot_table()
+        with self.replica.op(_ENGINE_DECODE, k, longs.shape[1]):
+            dist.broadcast(longs, src=0)
+            dist.broadcast(floats, src=0)
+            block = super().decode_quantum(k)
+            _agree(block)
+            return block
+
+
+def _rank_loop(decode, device, engine=None) -> None:
     import torch.distributed as dist
     while True:
         hdr = torch.empty(4, dtype=torch.long, device=device)
@@ -445,7 +554,23 @@ def _rank_loop(decode, device) -> None:
         op, B, S, steps = hdr.tolist()
         if op == _STOP:
             return
-        if op in (_DECODE, _PREFILL):
+        if op == _ENGINE_PREFILL:
+            slot, bucket, plen = B, S, steps
+            longs = torch.empty(bucket + 1, dtype=torch.long, device=device)
+            floats = torch.empty(2, device=device)
+            dist.broadcast(longs, src=0)
+            dist.broadcast(floats, src=0)
+            engine.prefill_slot(slot, longs[:bucket], plen, longs[bucket:],
+                                floats[:1], floats[1:])
+        elif op == _ENGINE_DECODE:
+            k, slots = B, S
+            longs = torch.empty((6, slots), dtype=torch.long, device=device)
+            floats = torch.empty((2, slots), device=device)
+            dist.broadcast(longs, src=0)
+            dist.broadcast(floats, src=0)
+            engine.load_slot_table(longs, floats)
+            _agree(engine.decode_quantum(k))
+        elif op in (_DECODE, _PREFILL):
             tokens = torch.empty((B, S), dtype=torch.long, device=device)
             dist.broadcast(tokens, src=0)
             if op == _DECODE:
@@ -467,8 +592,10 @@ def _tp_rank_main(argv, rank, world, addr, cards) -> None:
     from tpushare_torch.workloads.hbm import apply_hbm_gating
     apply_hbm_gating()
     try:
-        decode, device, _cfg = _tp_model(args, rank, world, addr, cards)
-        _rank_loop(decode, device)
+        decode, device, cfg, params = _tp_model(args, rank, world, addr,
+                                                cards)
+        engine = _engine(args, params, cfg) if args.engine else None
+        _rank_loop(decode, device, engine)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -476,7 +603,7 @@ def _tp_rank_main(argv, rank, world, addr, cards) -> None:
 
 def _tp_model(args, rank, world, addr, cards):
     """Join the replica's process group as ``rank`` on its card, and draw
-    its shards of the weights: ``(decode, device, cfg)``."""
+    its shards of the weights: ``(decode, device, cfg, params)``."""
     from tpushare_torch.workloads import parallel, resolve_device
     from tpushare_torch.workloads.hbm import apply_memory_fraction
     from tpushare_torch.workloads.model import (
@@ -522,7 +649,23 @@ def _tp_model(args, rank, world, addr, cards):
             return logits[:, -1]
 
     decode.prefill = prefill
-    return decode, device, cfg
+    return decode, device, cfg, params
+
+
+def _engine(args, params, cfg, replica=None):
+    """The replica's ``DecodeEngine`` from the command line's flags (on a
+    tp rank: over its shards; on rank 0 of ``replica``, a
+    :class:`_TPEngine`)."""
+    kw = dict(quantum=args.engine_quantum,
+              eos_id=None if args.eos_id < 0 else args.eos_id,
+              temperature=args.temperature, top_k=args.top_k,
+              top_p=args.top_p, seed=args.sample_seed,
+              per_request_sampling=args.per_request_sampling,
+              rolling=args.rolling_kv)
+    args_ = (params, cfg, args.engine_slots, args.engine_max_len)
+    if replica is not None:
+        return _TPEngine(replica, *args_, **kw)
+    return DecodeEngine(*args_, **kw)
 
 
 def _serve_cfg(args):
@@ -534,7 +677,8 @@ def _serve_cfg(args):
 
 
 def _start_tp(argv, args, world):
-    """Start ranks 1..world-1 and join as rank 0: ``(TPReplica, cfg)``."""
+    """Start ranks 1..world-1 and join as rank 0: ``(TPReplica, cfg,
+    params)``."""
     from tpushare_torch.contract import ENV_PLACEMENT_BOX
     from tpushare_torch.workloads import parallel, resolve_device
     device_type = resolve_device(args.device).type
@@ -558,7 +702,7 @@ def _start_tp(argv, args, world):
     for p in procs:
         p.start()
     try:
-        decode, device, cfg = _tp_model(args, 0, world, addr, cards)
+        decode, device, cfg, params = _tp_model(args, 0, world, addr, cards)
     except BaseException:
         for p in procs:
             p.kill()
@@ -567,13 +711,14 @@ def _start_tp(argv, args, world):
         if dist.is_initialized():
             dist.destroy_process_group()
         raise
-    return TPReplica(decode, device, procs), cfg
+    return TPReplica(decode, device, procs), cfg, params
 
 
 # -- live-migration seam ------------------------------------------------------
 # Process-local registry: workload name -> serve frontend, so a co-resident
-# migrator can park a replica's loop at a quantum boundary. The port's own;
-# wiring it to the scheduler side's migrator is later work.
+# migrator can park a replica's loop at a quantum boundary (the scheduler
+# side's Migrator takes frontend_for as its frontend_for). Under --tp the
+# other ranks wait on the next header while rank 0's loop is parked.
 _FRONTENDS: dict[str, _EngineFrontend] = {}
 _FRONTENDS_LOCK = threading.Lock()
 
@@ -637,8 +782,11 @@ def _parser() -> argparse.ArgumentParser:
 def build_server(argv: list[str] | None = None):
     """Parse ``argv``, build the model, the engine frontend (with
     ``--engine``, started) and the HTTP server. Returns
-    ``(httpd, frontend)``; ``frontend`` is the :class:`TPReplica` with
-    ``--tp`` above 1 (its ranks started), None without ``--engine``.
+    ``(httpd, frontend)``; ``frontend`` is the engine frontend with
+    ``--engine`` (under ``--tp`` above 1 its ``replica`` is the
+    :class:`TPReplica`, whose ranks it stops when it stops), else the
+    :class:`TPReplica` with ``--tp`` above 1 (its ranks started), else
+    None.
     The caller runs ``httpd.serve_forever()`` and, at the end, stops
     the frontend and closes the server."""
     ap = _parser()
@@ -670,13 +818,17 @@ def build_server(argv: list[str] | None = None):
     device = resolve_device(args.device)
     tp = args.tp or (torch.cuda.device_count() if device.type == "cuda"
                      else 1)
-    if tp > 1 and args.engine:
-        raise NotImplementedError(
-            "--engine with --tp above 1: continuous batching over tensor-"
-            "parallel ranks is not ported yet (ROADMAP.md Queue 1 item 16)")
+    if args.engine and args.no_kv_cache:
+        ap.error("--engine requires a KV-cached path "
+                 "(conflicts with --no-kv-cache)")
+    if (args.engine and args.rolling_kv
+            and args.engine_max_len < 2 * args.attn_window):
+        ap.error(f"--engine --rolling-kv needs --engine-max-len >= "
+                 f"2*attn-window ({2 * args.attn_window}): the ring "
+                 "must retain chunked-prefill keys")
     tp_replica = None
     if tp > 1:
-        tp_replica, cfg = _start_tp(argv, args, tp)
+        tp_replica, cfg, params = _start_tp(argv, args, tp)
         device = tp_replica.device
     else:
         if device.type == "cuda":
@@ -727,24 +879,8 @@ def build_server(argv: list[str] | None = None):
 
     engine_front = None
     if args.engine:
-        if args.no_kv_cache:
-            ap.error("--engine requires a KV-cached path "
-                     "(conflicts with --no-kv-cache)")
-        if args.rolling_kv and args.engine_max_len < 2 * args.attn_window:
-            ap.error(f"--engine --rolling-kv needs --engine-max-len >= "
-                     f"2*attn-window ({2 * args.attn_window}): the ring "
-                     "must retain chunked-prefill keys")
-        from tpushare_torch.workloads.engine import DecodeEngine
-        eos = None if args.eos_id < 0 else args.eos_id
         engine_front = _EngineFrontend(
-            DecodeEngine(params, cfg, args.engine_slots,
-                         args.engine_max_len,
-                         quantum=args.engine_quantum, eos_id=eos,
-                         temperature=args.temperature,
-                         top_k=args.top_k, top_p=args.top_p,
-                         seed=args.sample_seed,
-                         per_request_sampling=args.per_request_sampling,
-                         rolling=args.rolling_kv),
+            _engine(args, params, cfg, replica=tp_replica),
             tokens_counter=m_tokens)
         engine_front.start()
         register_frontend(os.environ.get("POD_NAME") or args.preset,
@@ -870,10 +1006,14 @@ def build_server(argv: list[str] | None = None):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self.send_response(200)
-                self.send_header("Content-Length", "2")
+                failure = (engine_front.failure if engine_front
+                           else tp_replica and tp_replica.failure)
+                body = (f"tp replica stopped: {failure}" if failure
+                        else "ok").encode()
+                self.send_response(503 if failure else 200)
+                self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
-                self.wfile.write(b"ok")
+                self.wfile.write(body)
             elif self.path == "/metrics":
                 body = registry.expose().encode()
                 self.send_response(200)
@@ -896,7 +1036,7 @@ def build_server(argv: list[str] | None = None):
     front = (f", engine slots={args.engine_slots} "
              f"quantum={args.engine_quantum}" if engine_front else "")
     if tp_replica is not None:
-        front = f", tp={tp}"
+        front += f", tp={tp}"
     print(f"tpushare-torch-serve ready on :{httpd.server_address[1]} "
           f"(preset={args.preset}, quant={args.quant}, device={device}"
           f"{front})", flush=True)
