@@ -143,6 +143,9 @@ def test_health_metrics_and_404(server):
     generated = [ln for ln in text.splitlines()
                  if ln.startswith("tpushare_serve_tokens_generated_total ")]
     assert float(generated[0].split()[1]) >= 3
+    waits = [ln for ln in text.splitlines() if ln.startswith(
+        "tpushare_serve_engine_admission_wait_seconds_count ")]
+    assert float(waits[0].split()[1]) >= 1
     assert server.get("/nope")[0] == 404
     assert server.post({"tokens": [1], "steps": 1}, None)[0] == 200
     req = urllib.request.Request(server.url + "/other", data=b"{}")

@@ -1,0 +1,54 @@
+"""Each cell of ``BENCHMARK.json`` traced on the CPU at the benchmark's
+tiny sizes (``benchmark/conftest.py``): the per-layer metrics that read
+the program's spans are reported and finite, and the counts agree with
+what the cell's traffic implies offline."""
+
+import math
+
+import pytest
+import torch
+
+from benchmark import cells, run, traffic
+from benchmark.conftest import shrink
+from tpushare_torch.workloads.engine import _bucket
+
+torch.set_num_threads(2)
+
+SEED = 2 ** 31 + 11
+SECONDS = 1.5
+SPAN_METRICS = {
+    "mistral-7b.chat": ["frontend.admission_wait_ms.serve",
+                        "engine.prefill_pad_share.serve",
+                        "engine.decode_lane_use.serve",
+                        "engine.kv_read_use.serve"],
+    "mixtral-8x7b-l4.train-4k": ["train.backward_ms.train",
+                                 "train.update_ms.train",
+                                 "moe.capacity_use.train"],
+    "mistral-7b.train-4k": ["train.backward_ms.train",
+                            "train.update_ms.train"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_METRICS))
+def test_traced_cell_reports_the_program_span_metrics(name):
+    cell = shrink(cells.cell(name))
+    assert {m["name"] for m in cell["per_layer"]} >= set(SPAN_METRICS[name])
+    out = run.execute(cell, SEED, SECONDS, True, device="cpu", t_start=0.0)
+    assert out["correct"] is True, out["checks"]
+    values = {n: out["metrics"][n]["value"] for n in SPAN_METRICS[name]}
+    assert all(v is not None and math.isfinite(v) and v > 0
+               for v in values.values()), values
+    if name == "mistral-7b.chat":
+        tr = cell["traffic"]
+        sched = traffic.schedule(tr, SEED, SECONDS,
+                                 cell["config"]["vocab_size"])
+        sizes = [(len(r.prompt), min(_bucket(len(r.prompt)),
+                                     tr["engine"]["max_len"])) for r in sched]
+        pads = sum(b - n for n, b in sizes) / sum(b for _, b in sizes) * 100
+        assert values["engine.prefill_pad_share.serve"] == \
+            pytest.approx(pads, abs=1e-9)
+        assert values["engine.decode_lane_use.serve"] <= 100
+        assert values["engine.kv_read_use.serve"] <= 100
+    if name.startswith("mixtral"):
+        m = cells.model_sizes(cell["config"])
+        assert values["moe.capacity_use.train"] == m["k"] / m["E"] * 100

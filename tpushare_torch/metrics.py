@@ -1,15 +1,23 @@
-"""Tiny Prometheus-text-format metrics registry for the port's replica.
+"""Tiny Prometheus-text-format metrics registry for the port's replica,
+and the spans of a traced run.
 
 The port's own copy of the part of ``tpushare/metrics.py`` the serving
 replica uses (counters, histograms, scrape-time gauges), with the same
 exposition text, so a scrape of a torch replica reads like one of a JAX
-replica.
+replica. :func:`span` records where the work happens while a
+``torch.profiler`` session runs, and :func:`last_session` reads them.
 """
 
 from __future__ import annotations
 
+import itertools
+import logging
 import threading
+import time
 from typing import Callable
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
 def _escape_help(text: str) -> str:
@@ -117,3 +125,174 @@ class Registry:
 # latency buckets of the reference registry (seconds)
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                    0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+# -- spans ---------------------------------------------------------------------
+# Program spans for a traced run, kept in memory on the host clock
+# ``time.time_ns()``. They record only while a ``torch.profiler`` session
+# runs in the process: ``torch.autograd.profiler._is_profiler_enabled`` is
+# process-wide, so the serving engine's own thread sees it (the profiler's
+# per-thread state and ``record_function`` do not reach that thread). Each
+# session starts an empty store; :func:`last_session` reads it.
+
+_store: list = []
+_ids = itertools.count()
+_local = threading.local()
+
+
+def new_session() -> None:
+    """Empty the store: the spans recorded from here on are the next
+    :func:`last_session`. Every profiler session calls it as it starts."""
+    global _store
+    _store = []
+
+
+def _reset_on_profiler_start() -> None:
+    """Every profiler session (``torch.profiler.profile`` and the autograd
+    profiler) starts by calling ``torch.autograd.profiler.
+    _run_on_profiler_start``; wrap it so that it calls :func:`new_session`
+    first. Where a torch release has no such hook, spans still record
+    while a profiler runs, and only :func:`new_session` empties the
+    store."""
+    start = getattr(_profiler, "_run_on_profiler_start", None)
+    if start is None:
+        logging.getLogger(__name__).warning(
+            "torch %s has no torch.autograd.profiler._run_on_profiler_start:"
+            " program spans of successive profiler sessions are kept "
+            "together until metrics.new_session()", torch.__version__)
+        return
+    if getattr(start, "resets_spans", False):
+        return
+
+    def run_on_profiler_start(*args, **kwargs):
+        new_session()
+        return start(*args, **kwargs)
+
+    run_on_profiler_start.resets_spans = True
+    _profiler._run_on_profiler_start = run_on_profiler_start
+
+
+_reset_on_profiler_start()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Off:
+    """What :func:`span` returns while nothing records: every method is a
+    no-op and the object is false."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def __bool__(self) -> bool:
+        return False
+
+    def begin(self):
+        return self
+
+    def end(self) -> None:
+        return None
+
+    def add(self, **attrs) -> None:
+        return None
+
+
+OFF = _Off()
+
+
+class Span:
+    """One recorded span: ``name``, ``id``, ``parent`` (the id of the
+    innermost span open on the thread that began it, or None), ``rid``
+    (the request id its spans share across threads), ``thread``,
+    ``start_ns`` and ``end_ns`` on ``time.time_ns()``, ``attrs``, and
+    ``device_ms`` (the CUDA time between its two events, or None).
+
+    Used as a context manager it is the innermost span of its thread
+    while open; :meth:`begin` and :meth:`end` bracket a span that another
+    thread may end."""
+
+    __slots__ = ("name", "id", "parent", "rid", "thread", "start_ns",
+                 "end_ns", "attrs", "device_ms", "_events", "_store")
+
+    def __init__(self, name: str, rid, device: bool, attrs: dict):
+        self.name, self.rid, self.attrs = name, rid, attrs
+        self.id = next(_ids)
+        self.parent = self.thread = self.start_ns = self.end_ns = None
+        self.device_ms = None
+        self._events = ((torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                        if device else None)
+        self._store = _store
+
+    def __bool__(self) -> bool:
+        return True
+
+    def begin(self) -> "Span":
+        stack = _stack()
+        self.parent = stack[-1].id if stack else None
+        self.thread = threading.current_thread().name
+        if self._events is not None:
+            self._events[0].record()
+        self.start_ns = time.time_ns()
+        return self
+
+    def end(self) -> None:
+        if self.end_ns is not None:
+            return
+        self.end_ns = time.time_ns()
+        if self._events is not None:
+            self._events[1].record()
+        self._store.append(self)
+
+    def add(self, **attrs) -> None:
+        """Attach counts as they become known; a 0-d device tensor is
+        read when the records are."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        self.begin()
+        _stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _stack().pop()
+        self.end()
+
+    def _resolve(self) -> None:
+        if self._events is not None:
+            self._events[1].synchronize()
+            self.device_ms = self._events[0].elapsed_time(self._events[1])
+            self._events = None
+        for k, v in self.attrs.items():
+            if isinstance(v, torch.Tensor):
+                self.attrs[k] = v.item()
+
+
+def span(name: str, rid=None, device: bool = False, **attrs):
+    """A span of the program, recorded while a profiler session runs and
+    :data:`OFF` otherwise (one attribute read). ``device=True`` on a CUDA
+    path also records a CUDA timing event at its start and end, resolved
+    by :func:`last_session`, with no synchronisation before."""
+    if not _profiler._is_profiler_enabled:
+        return OFF
+    return Span(name, rid, device, attrs)
+
+
+def last_session() -> list:
+    """The ended spans of the last profiler session, in the order they
+    ended, their device times and device counts read (which waits for
+    the device)."""
+    spans = list(_store)
+    for s in spans:
+        s._resolve()
+    return spans

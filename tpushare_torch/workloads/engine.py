@@ -50,6 +50,7 @@ import dataclasses
 
 import torch
 
+from tpushare_torch import metrics
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.model import (
     ModelConfig, forward_cached, init_kv_cache, local_heads)
@@ -61,6 +62,7 @@ class _Request:
     slot: int
     tokens: list  # generated so far (host copy)
     budget: int   # max new tokens
+    plen: int     # prompt length: the slot decodes at plen + len(tokens) - 1
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -365,23 +367,26 @@ class DecodeEngine:
         rid = self._next_rid
         self._next_rid += 1
         rkey = _request_key(self._seed, rid)
-        rkey_t = torch.full((1,), rkey, dtype=torch.long, device=dev)
-        temp_t = torch.full((1,), r_temp, device=dev)
-        topp_t = torch.full((1,), r_topp, device=dev)
-        first = self.prefill_slot(slot, padded, plen, rkey_t, temp_t, topp_t)
-        self._pos[slot] = plen
-        self._last[slot] = first[0]
-        # a prefill-time eos completes the request on the host side; the
-        # lane goes inactive on the device too
-        self._active[slot] = (first[0] != r_eos) & (max_new > 1)
-        self._remaining[slot] = max_new - 1
-        self._rkey[slot] = rkey
-        self._slot_temp[slot] = r_temp
-        self._slot_topp[slot] = r_topp
-        self._slot_eos[slot] = r_eos
-        first_tok = int(first[0])
+        with metrics.span("engine.prefill", rid=rid, plen=plen,
+                          bucket=bucket):
+            rkey_t = torch.full((1,), rkey, dtype=torch.long, device=dev)
+            temp_t = torch.full((1,), r_temp, device=dev)
+            topp_t = torch.full((1,), r_topp, device=dev)
+            first = self.prefill_slot(slot, padded, plen, rkey_t, temp_t,
+                                      topp_t)
+            self._pos[slot] = plen
+            self._last[slot] = first[0]
+            # a prefill-time eos completes the request on the host side;
+            # the lane goes inactive on the device too
+            self._active[slot] = (first[0] != r_eos) & (max_new > 1)
+            self._remaining[slot] = max_new - 1
+            self._rkey[slot] = rkey
+            self._slot_temp[slot] = r_temp
+            self._slot_topp[slot] = r_topp
+            self._slot_eos[slot] = r_eos
+            first_tok = int(first[0])
         req = _Request(rid=rid, slot=slot, tokens=[first_tok],
-                       budget=max_new)
+                       budget=max_new, plen=plen)
         self._by_slot[slot] = req
         self._by_rid[rid] = req
         if max_new == 1 or first_tok == r_eos:
@@ -416,23 +421,29 @@ class DecodeEngine:
     @torch.inference_mode()
     def decode_quantum(self, k: int) -> torch.Tensor:
         """k lock-step decode steps on the device; returns [k + 1, S]:
-        the emitted tokens (-1 = idle lane) and, last, the active flags."""
+        the emitted tokens (-1 = idle lane) and, last, the active flags.
+        Every step computes all S rows and attends over each row's whole
+        cache buffer (span ``engine.step``: ``rows``, ``keys_read``)."""
         emitted = []
+        rows = self._last.shape[0]
+        keys_read = rows * self._cache["k"].shape[2]
         for _ in range(k):
-            active = self._active
-            logits, _ = forward_cached(
-                self._params, self._last[:, None], self._cache, self._pos,
-                self._cfg, prefill_from_zero=False, write_rows=active)
-            nxt = self._pick(logits[:, -1], self._rkey, self._pos,
-                             self._slot_temp, self._slot_topp)
-            emitted.append(torch.where(active, nxt, -1))
-            step = active.long()
-            self._pos = self._pos + step
-            self._remaining = self._remaining - step
-            done = active & ((nxt == self._slot_eos)
-                             | (self._remaining <= 0))
-            self._last = torch.where(active, nxt, self._last)
-            self._active = active & ~done
+            with metrics.span("engine.step", rows=rows, keys_read=keys_read):
+                active = self._active
+                logits, _ = forward_cached(
+                    self._params, self._last[:, None], self._cache,
+                    self._pos, self._cfg, prefill_from_zero=False,
+                    write_rows=active)
+                nxt = self._pick(logits[:, -1], self._rkey, self._pos,
+                                 self._slot_temp, self._slot_topp)
+                emitted.append(torch.where(active, nxt, -1))
+                step = active.long()
+                self._pos = self._pos + step
+                self._remaining = self._remaining - step
+                done = active & ((nxt == self._slot_eos)
+                                 | (self._remaining <= 0))
+                self._last = torch.where(active, nxt, self._last)
+                self._active = active & ~done
         return torch.cat([torch.stack(emitted), self._active[None].long()])
 
     def run_quantum(self, k: int | None = None) -> dict[int, list[int]]:
@@ -447,8 +458,13 @@ class DecodeEngine:
                 self._by_rid.pop(rid, None)
             return finished
         k = self._quantum if k is None else int(k)
-        block = self.decode_quantum(k).cpu()  # the quantum's one host sync
-        emitted_host, active_host = block[:-1], block[-1]
+        with metrics.span("engine.quantum") as quantum:
+            # the quantum's one host sync
+            block = self.decode_quantum(k).cpu()
+            emitted_host, active_host = block[:-1], block[-1]
+            if quantum:
+                quantum.add(emitted=int((emitted_host >= 0).sum()),
+                            live_keys=self._live_keys(emitted_host))
         for slot, req in list(self._by_slot.items()):
             toks = [int(t) for t in emitted_host[:, slot] if t >= 0]
             req.tokens.extend(toks)
@@ -461,6 +477,20 @@ class DecodeEngine:
         for rid in finished:
             self._by_rid.pop(rid, None)
         return finished
+
+    def _live_keys(self, emitted: torch.Tensor) -> int:
+        """The keys a quantum's steps attend, summed over each step's
+        active lanes: ``min(position + 1, window)``, from the residents'
+        positions before it and its emitted block ``[k, S]`` (a lane,
+        once idle, stays idle within the quantum)."""
+        pos0 = torch.zeros(emitted.shape[1], dtype=torch.long)
+        for slot, req in self._by_slot.items():
+            pos0[slot] = req.plen + len(req.tokens) - 1
+        live = emitted >= 0
+        keys = pos0 + live.long().cumsum(0) - live.long() + 1
+        if self._cfg.attn_window is not None:
+            keys = keys.clamp(max=self._cfg.attn_window)
+        return int((keys * live).sum())
 
     def drain(self) -> dict[int, list[int]]:
         """Run quanta until every resident request completes."""

@@ -42,6 +42,7 @@ from typing import Any
 
 import torch
 
+from tpushare_torch import metrics
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
     flash_attention, sliding_window_mask)
@@ -637,14 +638,19 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 3e-4,
 
 def _sharded_step(loss_of):
     """The step shared by both families: ``loss_of(params, *batch)`` is
-    this rank's loss over its rows of the batch."""
+    this rank's loss over its rows of the batch. Traced, its spans
+    ``train.bwd`` and ``train.update`` (the "dp" mean, the optimizer and
+    ``zero_grad``) carry device times on a card."""
     def train_step(params, opt_state, *batch):
         loss = loss_of(params, *batch)
-        loss.backward()
-        mesh = parallel.mesh_of(params)
-        parallel.dp_mean_grads(param_leaves(params), mesh)
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
+        cuda = loss.is_cuda
+        with metrics.span("train.bwd", device=cuda):
+            loss.backward()
+        with metrics.span("train.update", device=cuda):
+            mesh = parallel.mesh_of(params)
+            parallel.dp_mean_grads(param_leaves(params), mesh)
+            opt_state.step()
+            opt_state.zero_grad(set_to_none=True)
         return params, opt_state, parallel.mean_over(loss.detach(), mesh)
 
     return train_step

@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpushare_torch import metrics
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.parallel import P
 
@@ -126,11 +127,17 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int,
     first), and the aux loss reads the global means, as the reference's
     one call over the whole batch does. The gates enter the partial
     combine through :func:`parallel.copy_to` over "ep", whose backward sums
-    each rank's share of their gradient."""
+    each rank's share of their gradient.
+
+    Traced, span ``moe.route`` counts the capacity ``slots`` (E' x C),
+    the token-expert ``pairs`` (T x k) and, summed on the device from
+    the [k, E] counts, the pairs ``kept`` in a slot of E'."""
     T, E = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
     masks, gates = _topk_gates(probs, top_k)
     lo, hi = experts or (0, E)
+    route = metrics.span("moe.route", slots=(hi - lo) * capacity,
+                         pairs=T * top_k).begin()
 
     n_dp = parallel.axis_size(mesh, "dp")
     if n_dp == 1:
@@ -166,6 +173,13 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int,
         dispatch = dispatch + d_k
         gate = parallel.copy_to(gate, mesh, "ep")
         combine = combine + gate[:, None, None] * d_k
+    if route:
+        # this rank's tokens take the slots [start, start + n) of (k, e)
+        start = before + torch.cumsum(everyone, dim=0) - everyone
+        end = start + counts[parallel.axis_rank(mesh, "dp")]
+        kept = end.clamp(max=capacity) - start.clamp(max=capacity)
+        route.add(kept=kept[:, lo:hi].sum())
+        route.end()
     return dispatch, combine, aux
 
 

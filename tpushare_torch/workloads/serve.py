@@ -52,6 +52,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from tpushare_torch import metrics
 from tpushare_torch.workloads.engine import DecodeEngine
 from tpushare_torch.workloads.migrate import _pod_name
 
@@ -144,11 +145,18 @@ class _EngineFrontend:
     DecodeEngine. Every engine call happens on the engine thread (the
     handlers only enqueue and wait), so slot admission, prefill and
     quanta never race. Admission is work-conserving: every quantum
-    boundary first fills free slots from the queue, then advances."""
+    boundary first fills free slots from the queue, then advances.
 
-    def __init__(self, engine, tokens_counter=None):
+    Traced (:func:`tpushare_torch.metrics.span`), a request's
+    ``frontend.queue_wait`` runs from its enqueue on the client's thread
+    to the start of its admission on the engine thread, and carries the
+    rid its ``engine.prefill`` has. ``admission_wait`` (a histogram)
+    observes the same wait in seconds."""
+
+    def __init__(self, engine, tokens_counter=None, admission_wait=None):
         self._engine = engine
         self._tokens = tokens_counter
+        self._admission_wait = admission_wait
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         # why the loop ended on its own (a tp replica that stopped): every
@@ -260,6 +268,11 @@ class _EngineFrontend:
         if self._stop.is_set():
             self._fail(done, box, self._failure or "server shutting down")
             return
+        wait = metrics.span("frontend.queue_wait").begin()
+        if wait:
+            box["wait"] = wait
+        if self._admission_wait is not None:
+            box["enqueued"] = time.perf_counter()
         self._q.put(item)
         if self._stop.is_set():
             self._fail(done, box, self._failure or "server shutting down")
@@ -287,6 +300,11 @@ class _EngineFrontend:
                 except queue.Empty:
                     break
                 prompt, max_new, sampling, done, box = item
+                wait = box.get("wait", metrics.OFF)
+                wait.end()
+                if self._admission_wait is not None:
+                    self._admission_wait.observe(
+                        time.perf_counter() - box["enqueued"])
                 try:
                     rid = self._engine.submit(prompt, max_new, **sampling)
                 except ReplicaStopped as e:
@@ -297,6 +315,8 @@ class _EngineFrontend:
                     # thread must survive a bad request
                     self._fail(done, box, f"{type(e).__name__}: {e}")
                     continue
+                if wait:
+                    wait.rid = rid
                 if "stream" in box:
                     box["stream"].put(
                         ("delta", self._engine.peek_tokens(rid) or []))
@@ -881,7 +901,12 @@ def build_server(argv: list[str] | None = None):
     if args.engine:
         engine_front = _EngineFrontend(
             _engine(args, params, cfg, replica=tp_replica),
-            tokens_counter=m_tokens)
+            tokens_counter=m_tokens,
+            admission_wait=registry.histogram(
+                "tpushare_serve_engine_admission_wait_seconds",
+                "wait from a request's enqueue to the start of its "
+                "admission into a decode-engine slot",
+                tuple(b * 100 for b in LATENCY_BUCKETS)))
         engine_front.start()
         register_frontend(os.environ.get("POD_NAME") or args.preset,
                           engine_front)
