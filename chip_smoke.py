@@ -27,7 +27,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                backward timed in CUDA graphs) and the share of the bound;
                one-CTA probes of the forward's and the backward's tile
                step; the backward kernels also launch twice for bitwise
-               equal gradients.
+               equal gradients; the decode attention over the int8 cache
+               (``kv_decode``) at the chat cell's decode shape against its
+               plain version, timed beside its byte bound and the plain
+               version (the einsum chain it replaced).
 4. train    -- the trainer (``player --mode train --attn flash``) at
                llama-8b width and depth, three AdamW steps on one batch of
                1024 tokens; the launch counts must show every layer's
@@ -46,21 +49,24 @@ Phases, each printing its own lines; any failure exits non-zero:
                ``moe_ffn`` timed at the train run's 1023 tokens against
                its bound; (c) the int8 replica at capacity factor 4.0
                (dropless) without ``--engine`` answering HTTP requests,
-               every prefill through the kernel, the served tokens
+               every prefill through K1 and every decode step's layers
+               through ``kv_decode``, the served tokens
                against an uncached einsum forward; (d) ``llama-moe-tiny``
                trained for two steps (head_dim 16 through K1, K2, K3).
                Runs before serve, whose engine replica stays registered.
 6. serve    -- the int8 serving replica (``llama-8b``, int8 weights, int8
                KV cache, ``--attn flash``, continuous batching) answering
-               HTTP requests; the kernel's launch count must show every
-               prefill went through it.
+               HTTP requests; the launch counts must show every prefill
+               went through K1 and every decode step's layers through
+               ``kv_decode``.
 6b. shard   -- data, tensor and expert parallelism, ranks sharing the one
                card over gloo: (a) ``samples/5-serving.yaml`` as deployed,
                the llama-8b int8 replica with ``--tp 4 --engine`` (four
                ranks, each under the sample's 8192 MiB grant, in a child
                process) serving the serve phase's ragged concurrent
-               traffic, every prefill through K1 on every rank, every
-               served token against the tp=1 replica's uncached forward
+               traffic, every prefill through K1 and every decode step's
+               layers through ``kv_decode`` on every rank, every served
+               token against the tp=1 replica's uncached forward
                on the same seeded weights, co-tenant invariance, and
                first-token logits against the tp=1 replica; (b) the
                trainer (``TrainCheckpointer.resume_or_init(mesh=)`` and
@@ -143,6 +149,21 @@ PEAK_BYTES = 3.35e12
 # bf16 allows a few output ulps (2**-7 at 1.0) and fp32 a few 1e-6
 TOL = {"bfloat16": {"out": 2e-2, "lse": 1e-3},
        "float32": {"out": 1e-4, "lse": 1e-4}}
+# kv_decode at the chat cell's decode shape (B, M, H, Hkv, D), timed over
+# KV_LAYERS layers' caches (2.1 GB, against L2's 50 MB); spans (label,
+# least and most keys a row, active rows: the rest read nothing). The
+# chat cell's steps hold ~16k live keys (~13% of 32 x 4096, as its
+# engine.kv_read_use metric reads on the einsum path)
+KV_SHAPE = (32, 4096, 32, 8, 128)
+KV_LAYERS = 8
+KV_SPANS = [("chat mean, 1-1024 keys", 1, 1024, 32),
+            ("1-4096 keys, 24 active", 1, 4096, 24),
+            ("whole buffer", 4096, 4096, 32)]
+# kernel vs plain (bf16 out): the plain version rounds q . k to bf16
+# after the product (2**-9 of a raw dot) and p * vs to bf16 before the PV
+# product, where the kernel keeps both in fp32; a row of one key gives
+# out = v * vs, up to ~4, whose bf16 ulp is 2**-6
+KV_TOL = 2e-2
 # flash vs einsum llama-mini logits (bf16, 4 layers): the einsum path
 # rounds scores to bf16 before the softmax, the kernel keeps them fp32,
 # so the logits (|logit| up to about 6) may differ by a few bf16 ulps
@@ -586,6 +607,80 @@ class Smoke:
         self._tile_step_probe()
         self._bwd_tile_step_probe()
         self._kernels_bwd()
+        self._kv_decode()
+
+    def _kv_decode(self):
+        """The decode attention over the int8 cache (``kv_decode``) at the
+        chat cell's decode shape: 32 slots of 4096 positions, Mistral-7B's
+        heads (32 query, 8 kv, head_dim 128), window 4096, bf16 queries;
+        keys and values drawn N(0, 1) and quantised as the model stores
+        them. For each set of spans: the kernel against its plain version,
+        its device time over ``KV_LAYERS`` layers' caches in turn (more
+        bytes than L2 holds, as a decode step finds them), its byte bound,
+        and the plain version's time, which is the einsum chain the decode
+        step ran before the kernel, masked by span."""
+        import torch
+        from tpushare_torch.kernels import kv_decode
+        from tpushare_torch.workloads.model import _kv_quant
+
+        B, M, H, Hkv, D = KV_SHAPE
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        layers = []
+        for _ in range(KV_LAYERS):
+            k8, ks = _kv_quant(torch.randn(B, M, Hkv, D, generator=gen,
+                                           device=dev))
+            v8, vs = _kv_quant(torch.randn(B, M, Hkv, D, generator=gen,
+                                           device=dev))
+            layers.append((k8, v8, ks, vs))
+        rows = []
+        for label, least, most, active in KV_SPANS:
+            hi = torch.randint(least, most + 1, (B,), generator=gen,
+                               device=dev, dtype=torch.int32)
+            lo = torch.zeros_like(hi)
+            hi = torch.where(torch.arange(B, device=dev) < active, hi, lo)
+            out = kv_decode.kv_decode(q, *layers[0][:2], *layers[0][2:],
+                                      lo, hi)
+            torch.cuda.synchronize()
+            ref = kv_decode.kv_decode_plain(q, *layers[0][:2],
+                                            *layers[0][2:], lo, hi)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= KV_TOL:
+                raise AssertionError(f"kv_decode [{label}]: kernel vs plain "
+                                     f"max|d| {err:.3g} (tol {KV_TOL})")
+            turn = [0]
+
+            def kernel():
+                k8, v8, ks, vs = layers[turn[0] % KV_LAYERS]
+                turn[0] += 1
+                return kv_decode.kv_decode(q, k8, v8, ks, vs, lo, hi)
+
+            def plain():
+                k8, v8, ks, vs = layers[turn[0] % KV_LAYERS]
+                turn[0] += 1
+                return kv_decode.kv_decode_plain(q, k8, v8, ks, vs, lo, hi)
+
+            ms = time_ms(kernel, KV_LAYERS)
+            host_ms = call_ms(kernel)
+            plain_ms = time_ms(plain, KV_LAYERS, reps=3)
+            keys = int((hi - lo).sum())
+            # each live key's int8 K and V rows and fp32 scales read once,
+            # q read and the output written once
+            nbytes = keys * Hkv * (2 * D + 8) + 2 * 2 * B * H * D + 8 * B
+            bound = roofline(4 * keys * H * D, nbytes, torch.bfloat16)
+            row = {"shape": label, "B": B, "M": M, "H": H, "Hkv": Hkv,
+                   "D": D, "live_keys": keys, "max_abs_err": err, "ms": ms,
+                   "call_ms": host_ms, "plain_ms": plain_ms, **bound,
+                   "bound_share": bound["bound_ms"] / ms}
+            rows.append(row)
+            log(f"kernel kv_decode [{label}] B={B} M={M} H={H} Hkv={Hkv} "
+                f"D={D}, {keys} live keys: max|d| {err:.3g} against plain; "
+                f"{ms:.4f} ms ({host_ms:.4f} ms a call from Python), plain "
+                f"(the einsum chain) {plain_ms:.4f} ms, bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({bound['bytes']:.4g} B; share {row['bound_share']:.3f})")
+        self.results["kv_decode_shapes"] = rows
 
     def _tile_step_probe(self):
         """The latency of one kv tile step: K1 and K4 on one CTA (B = H =
@@ -969,7 +1064,8 @@ class Smoke:
                 MOE_TINY_ARGV, "moe tiny: llama-moe-tiny (head_dim 16)")
         self.moe_launches = {
             "moe_train": record["train"]["launches"],
-            "moe_serve": {"flash_fwd": record["serve"]["launches"]},
+            "moe_serve": {"flash_fwd": record["serve"]["launches"],
+                          "kv_decode": record["serve"]["kv_decode_launches"]},
             "moe_tiny_train": record["tiny_train"]["launches"]}
         self.results["moe"] = record
 
@@ -1067,13 +1163,14 @@ class Smoke:
 
     def _moe_serve(self) -> dict:
         """The Mixtral-width int8 replica without ``--engine``: HTTP
-        requests through ``greedy_decode_kv``, every prefill through K1,
-        the tokens against an uncached einsum forward."""
+        requests through ``greedy_decode_kv``, every prefill through K1
+        and every decode step's layers through ``kv_decode``, the tokens
+        against an uncached einsum forward."""
         import dataclasses
         import gc
 
         import torch
-        from tpushare_torch.kernels import flash
+        from tpushare_torch.kernels import flash, kv_decode
         from tpushare_torch.workloads import model, serve
 
         gc.collect()
@@ -1102,8 +1199,8 @@ class Smoke:
         requests = [(warm, 16), (first, 1), (first, 32), (long, 16)]
         answers, times = {}, []
         try:
-            # -- the main path, with the launch count read around it only --
-            flash.LAUNCHES = 0
+            # -- the main path, with the launch counts read around it only --
+            flash.LAUNCHES = kv_decode.LAUNCHES = 0
             t_main = time.perf_counter()
             for i, (batch, steps) in enumerate(requests):
                 t0 = time.perf_counter()
@@ -1112,7 +1209,7 @@ class Smoke:
                 check_rows(batch, rows, steps, cfg.vocab)
                 answers[i] = (batch, rows)
             main_s = time.perf_counter() - t_main
-            launches = flash.LAUNCHES
+            launches, kv_launches = flash.LAUNCHES, kv_decode.LAUNCHES
             # -- end of the main path --
         finally:
             httpd.shutdown()
@@ -1127,6 +1224,12 @@ class Smoke:
             raise AssertionError(f"moe serve: flash_fwd launches {launches}"
                                  f" != {cfg.n_layers} layers x "
                                  f"{len(requests)} prefills = {expect}")
+        # greedy_decode_kv: one prefill, then steps - 1 decode steps
+        steps = sum(n - 1 for _, n in requests)
+        if kv_launches != cfg.n_layers * steps:
+            raise AssertionError(f"moe serve: kv_decode launches "
+                                 f"{kv_launches} != {cfg.n_layers} layers x "
+                                 f"{steps} decode steps")
         ttft, decode_rate = times[1], 31 / (times[2] - times[1])
         # the replica's weights again, from the same seed
         with torch.inference_mode():
@@ -1138,7 +1241,9 @@ class Smoke:
         log(f"moe serve: Mixtral-width int8 replica (capacity factor "
             f"{cfg.moe_capacity_factor}, no engine) built in {build_s:.1f} "
             f"s; {len(requests)} requests, flash_fwd launches {launches} = "
-            f"{cfg.n_layers} x {len(requests)} prefills; greedy_decode_kv "
+            f"{cfg.n_layers} x {len(requests)} prefills, kv_decode launches "
+            f"{kv_launches} = {cfg.n_layers} x {steps} decode steps; "
+            f"greedy_decode_kv "
             f"again gives the served tokens bitwise: "
             f"{check['bitwise_served']}; layer 0's router logits"
             f" within {check['router0_max_abs_diff']:.4f} of the uncached "
@@ -1156,7 +1261,8 @@ class Smoke:
             f"450 + 16 tokens {times[3]:.3f} s; max_memory_allocated "
             f"{mem / 2**30:.2f} GiB; main path {main_s:.1f} s")
         return {"argv": MOE_SERVE_ARGV, "requests": len(requests),
-                "launches": launches, "request_s": times,
+                "launches": launches, "kv_decode_launches": kv_launches,
+                "decode_steps": steps, "request_s": times,
                 "ttft_ms": ttft * 1e3, "decode_tokens_per_s": decode_rate,
                 "token_check": check, "build_s": build_s,
                 "max_memory_allocated": mem, "main_path_s": main_s}
@@ -1190,14 +1296,31 @@ class Smoke:
 
     def _drive(self, url, front, flash):
         import torch
+        from tpushare_torch.kernels import kv_decode
         cfg = front.engine.cfg
+        steps = [0]
+        decode = front.engine.decode_quantum
+
+        def counted(k):
+            steps[0] += k
+            return decode(k)
+
+        front.engine.decode_quantum = counted
 
         def reset():
-            flash.LAUNCHES = 0
+            flash.LAUNCHES = kv_decode.LAUNCHES = steps[0] = 0
 
         traffic = engine_traffic(url, cfg.vocab, reset,
-                                 lambda: flash.LAUNCHES)
-        launches = traffic["counts"]
+                                 lambda: (flash.LAUNCHES, kv_decode.LAUNCHES,
+                                          steps[0]))
+        launches, kv_launches, steps = traffic["counts"]
+        if kv_launches != cfg.n_layers * steps:
+            raise AssertionError(f"kv_decode launches {kv_launches} != "
+                                 f"{cfg.n_layers} layers x {steps} decode "
+                                 f"steps = {cfg.n_layers * steps}")
+        self.kv_launches = kv_launches
+        log(f"serve: {steps} decode steps, kv_decode launches "
+            f"{kv_launches} = {cfg.n_layers} x {steps}")
         if not traffic["cotenant_equal"]:
             raise AssertionError("co-tenant invariance: the solo request's "
                                  "tokens changed beside co-tenants")
@@ -1234,6 +1357,7 @@ class Smoke:
             raise AssertionError("/metrics lacks the token counter")
         self.results["serve"] = {
             "requests": prefills, "launches": launches,
+            "kv_decode_launches": kv_launches, "decode_steps": steps,
             "ttft_ms": traffic["ttft_s"] * 1e3,
             "stream_s": traffic["stream_s"],
             "stream_decode_tokens_per_s":
@@ -1282,9 +1406,13 @@ class Smoke:
                   "train": self._shard_train(),
                   "moe": self._shard_moe()}
         self.shard_launches = {
-            "shard_serve": {"flash_fwd": record["serve"]["launches"]},
+            "shard_serve": {"flash_fwd": record["serve"]["launches"],
+                            "kv_decode": min(record["serve"][
+                                "kv_decode_launches_per_rank"])},
             "shard_decode": {"flash_fwd":
-                             record["serve"]["decode"]["launches"]},
+                             record["serve"]["decode"]["launches"],
+                             "kv_decode": min(record["serve"]["decode"][
+                                 "kv_decode_launches_per_rank"])},
             "shard_train": record["train"]["launches"],
             "shard_resume": record["train"]["resume_launches"]}
         self.results["shard"] = record
@@ -1297,8 +1425,8 @@ class Smoke:
         path without its engine, ``SHARD_PROMPTS`` each alone. Here:
         every token of both against the tp=1 replica's uncached einsum
         forward on the same seeded weights, co-tenant invariance, each
-        rank's K1 launches on each path and its peak, and the
-        first-token logits of ``SHARD_PROMPTS`` against the tp=1
+        rank's K1 and kv_decode launches on each path and its peak, and
+        the first-token logits of ``SHARD_PROMPTS`` against the tp=1
         replica's. With ``plant`` (:data:`SHARD_ENGINE_PLANTS`, planted
         in rank 1) returns what the checks refused instead of raising."""
         import dataclasses
@@ -1341,6 +1469,11 @@ class Smoke:
         grant = SHARD_GRANT_MIB * 2**20
         launches = [s["flash_fwd"] for s in traffic["counts"]]
         decode_launches = [s["flash_fwd"] for s in decode["counts"]]
+        kv_launches = [s["kv_decode"] for s in traffic["counts"]]
+        decode_kv_launches = [s["kv_decode"] for s in decode["counts"]]
+        # the engine's quanta, and greedy_decode_kv's steps - 1 a prompt
+        engine_steps = out["engine_decode_steps"]
+        decode_steps = (SHARD_DECODE_STEPS - 1) * len(prompts)
         peaks = [max(b["max_memory_allocated"], s["max_memory_allocated"],
                      d["max_memory_allocated"])
                  for b, s, d in zip(out["built_stats"], traffic["counts"],
@@ -1354,6 +1487,14 @@ class Smoke:
                     failures.append(f"{path} path: rank {r} flash_fwd "
                                     f"launches {n} != {cfg.n_layers} "
                                     f"layers x {prefills} prefills")
+        for path, counts, steps in (("engine", kv_launches, engine_steps),
+                                    ("decode", decode_kv_launches,
+                                     decode_steps)):
+            for r, n in enumerate(counts):
+                if n != cfg.n_layers * steps:
+                    failures.append(f"{path} path: rank {r} kv_decode "
+                                    f"launches {n} != {cfg.n_layers} "
+                                    f"layers x {steps} decode steps")
         for p, row in zip(prompts, decode["rows"]):
             check_rows([p], [row], SHARD_DECODE_STEPS, cfg.vocab)
         for r, peak in enumerate(peaks):
@@ -1407,7 +1548,9 @@ class Smoke:
             f"{traffic['together_s']:.2f} s; co-tenant invariance "
             f"{traffic['cotenant_equal']}; flash_fwd launches "
             "per rank " + ", ".join(map(str, launches))
-            + f" = {cfg.n_layers} x {traffic['requests']} prefills; peak "
+            + f" = {cfg.n_layers} x {traffic['requests']} prefills; "
+            "kv_decode launches per rank " + ", ".join(map(str, kv_launches))
+            + f" = {cfg.n_layers} x {engine_steps} decode steps; peak "
             "allocated per rank " + ", ".join(f"{p / 2**30:.2f}"
                                               for p in peaks) + " GiB")
         log(f"shard serve: the same ranks without the engine "
@@ -1420,7 +1563,9 @@ class Smoke:
             + f" ms), {decode_rate:.2f} decode tokens/s at the 450 prompt; "
             "flash_fwd launches per rank "
             + ", ".join(map(str, decode_launches))
-            + f" = {cfg.n_layers} x {len(prompts)} prefills")
+            + f" = {cfg.n_layers} x {len(prompts)} prefills; kv_decode "
+            "launches per rank " + ", ".join(map(str, decode_kv_launches))
+            + f" = {cfg.n_layers} x {decode_steps} decode steps")
         log(f"shard serve: first-token logits tp=4 vs tp=1 max|d| {err:.4g} "
             f"of max|logit| {spread:.3g} (limit {SHARD_LOGIT_TOL}); served "
             f"tokens within {margin:.3f} (engine) and {decode_margin:.3f} "
@@ -1429,6 +1574,8 @@ class Smoke:
         record.update({
             "prompts": list(SHARD_PROMPTS), "requests": traffic["requests"],
             "launches": min(launches), "launches_per_rank": launches,
+            "kv_decode_launches_per_rank": kv_launches,
+            "decode_steps": engine_steps,
             "peak_per_rank": peaks, "ttft_ms": traffic["ttft_s"] * 1e3,
             "stream_decode_tokens_per_s":
                 traffic["stream_decode_tokens_per_s"],
@@ -1440,6 +1587,7 @@ class Smoke:
             "decode": {"steps": SHARD_DECODE_STEPS,
                        "launches": min(decode_launches),
                        "launches_per_rank": decode_launches,
+                       "kv_decode_launches_per_rank": decode_kv_launches,
                        "request_s": decode["request_s"],
                        "prefill_s": decode["prefill_s"],
                        "decode_tokens_per_s_450": decode_rate,
@@ -2107,6 +2255,26 @@ class Smoke:
             "library_ms": vit_row["library_ms"], "shape": VIT_SHAPE,
             "sdpa_ratio": vit_row["pipelined"]["sdpa_ratio"],
             "bound_share": vit_row["pipelined"]["bound_share"]})
+        # kv_decode: times at the chat cell's mean spans, launches from the
+        # serving paths' decode steps (per rank on the sharded ones); it
+        # replaces no TPU kernel (the reference's decode einsum, whose int8
+        # convert XLA fuses)
+        rows = self.results["kv_decode_shapes"]
+        out.append({
+            "name": "kv_decode", "route": "cuda",
+            "source": "tpushare_torch/csrc/kv_decode.cu", "replaces": None,
+            "launches": self.kv_launches,
+            "launches_by_path": {
+                "serve": self.kv_launches,
+                **{k: v["kv_decode"]
+                   for k, v in (*self.moe_launches.items(),
+                                *self.shard_launches.items())
+                   if "kv_decode" in v}},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None, "shape": rows[0]["shape"],
+            "sdpa_ratio": None, "bound_share": rows[0]["bound_share"]})
         return out
 
 
@@ -3508,7 +3676,7 @@ def serve_child(spec: dict) -> int:
     read just after; then, from the same ranks, the path without the
     engine (``TPReplica.decode``), each of ``spec["prompts"]`` alone for
     ``SHARD_DECODE_STEPS`` tokens with the counts reset and read around
-    it; then the first-token logits of each prompt, timed (a prefill
+    it (and rank 0's engine decode steps counted over the traffic); then the first-token logits of each prompt, timed (a prefill
     alone), saved to ``spec["logits"]``. Prints one ``CHILD_RESULT``
     line. A request that the ranks' token agreement fails (its message,
     :data:`TP_AGREE_MESSAGE`, in the error) is reported as ``refused``
@@ -3531,13 +3699,29 @@ def serve_child(spec: dict) -> int:
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # rank 0's decode steps; every rank runs each of them
+    steps = [0]
+    decode = front.engine.decode_quantum
+
+    def counted(k):
+        steps[0] += k
+        return decode(k)
+
+    def reset():
+        replica.reset_stats()
+        steps[0] = 0
+
+    def read():
+        stats = replica.stats()
+        out["engine_decode_steps"] = steps[0]
+        return stats
+
+    front.engine.decode_quantum = counted
     try:
         try:
             # a warm-up request meets the cold caches; it is not counted
             post(url, {"tokens": [spec["prompts"][0]], "steps": 2})
-            out["traffic"] = engine_traffic(url, spec["vocab"],
-                                            replica.reset_stats,
-                                            replica.stats)
+            out["traffic"] = engine_traffic(url, spec["vocab"], reset, read)
         except (urllib.error.HTTPError, AssertionError) as e:
             said = (e.read().decode() if isinstance(e, urllib.error.HTTPError)
                     else str(e))

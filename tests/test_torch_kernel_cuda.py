@@ -410,3 +410,68 @@ def test_ring_backward_on_one_rank_matches_flash_attention(cuda, zigzag):
         scale = b.grad.float().abs().max().item()
         assert (a.grad.float() - b.grad.float()).abs().max().item() <= \
             2 ** -7 * scale
+
+
+# -- kv_decode (csrc/kv_decode.cu): decode attention over the int8 cache ----
+
+# (B, M, query heads, kv heads, window): the chat cell's decode step
+# (Mistral-7B's heads, 32 slots of 4096, window 4096), a rank of the tp=4
+# replica (8 and 2 local heads), a window shorter than the buffer (spans
+# that start past 0), and GQA groups of 1, 2 and 8; bf16 queries at
+# head_dim 128, the only ones the kernel takes
+KV_CASES = [(32, 4096, 32, 8, 4096),
+            (32, 4096, 8, 2, 4096),
+            (8, 1000, 32, 8, 300),
+            (4, 520, 8, 8, None),
+            (4, 700, 8, 4, None),
+            (2, 300, 16, 2, 100)]
+KV_IDS = [f"B{c[0]}M{c[1]}H{c[2]}Hkv{c[3]}-w{c[4]}" for c in KV_CASES]
+# kernel vs plain, bf16 out: the plain version rounds q . k to bf16 after
+# the product (2**-9 of a raw dot) and p * vs to bf16 before the PV
+# product, where the kernel keeps both in fp32; a row of one key gives
+# out = v * vs, up to ~4, whose bf16 ulp is 2**-6
+KV_TOL = 2e-2
+
+
+def _kv_case(dev, B, M, H, Hkv, window, seed=0):
+    """q, one layer of the int8 cache (N(0, 1) keys and values quantised
+    as the model stores them) and the spans ``forward_cached`` gives rows
+    at random positions, a quarter of them inactive."""
+    import dataclasses
+
+    from tpushare_torch.workloads import model
+
+    D = 128
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    k8, ks = model._kv_quant(torch.randn(B, M, Hkv, D, generator=gen,
+                                         device=dev))
+    v8, vs = model._kv_quant(torch.randn(B, M, Hkv, D, generator=gen,
+                                         device=dev))
+    pos = torch.randint(0, M, (B,), generator=gen, device=dev)
+    pos[0], pos[-1] = 0, M - 1
+    active = torch.rand(B, generator=gen, device=dev) >= 0.25
+    active[0] = active[-1] = True
+    cfg = dataclasses.replace(model.PRESETS["llama-tiny"], n_heads=H,
+                              n_kv_heads=Hkv, d_model=H * D,
+                              dtype=torch.bfloat16, kv_cache_dtype="int8",
+                              attn_window=window)
+    lo, hi = model.kv_decode_spans(cfg, {"k": k8[None]}, pos, 1, active)
+    return q, k8, v8, ks, vs, lo, hi
+
+
+@pytest.mark.parametrize("case", KV_CASES, ids=KV_IDS)
+def test_kv_decode_matches_plain(cuda, case):
+    from tpushare_torch.kernels import kv_decode
+
+    args = _kv_case(cuda, *case)
+    before = kv_decode.LAUNCHES
+    out = kv_decode.kv_decode(*args)
+    torch.cuda.synchronize()
+    assert kv_decode.LAUNCHES == before + 1
+    ref = kv_decode.kv_decode_plain(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= KV_TOL
+    lo, hi = args[-2:]
+    assert not out[hi <= lo].any()  # an inactive row reads nothing: 0

@@ -8,4 +8,8 @@
 - :mod:`tpushare_torch.kernels.flash_bwd` wraps the flash-attention
   backward (``csrc/flash_bwd.cu``): the dq and dk/dv kernels, which
   replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkdv_kernel``.
+- :mod:`tpushare_torch.kernels.kv_decode` wraps the decode attention over
+  the int8 KV cache (``csrc/kv_decode.cu``), which reads only each row's
+  live keys. It replaces no TPU kernel: the reference's decode step is an
+  einsum whose int8 convert XLA fuses into the dot.
 """

@@ -53,7 +53,8 @@ import torch
 from tpushare_torch import metrics
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.model import (
-    ModelConfig, forward_cached, init_kv_cache, local_heads)
+    ModelConfig, forward_cached, init_kv_cache, kv_decode_spans,
+    local_heads)
 
 
 @dataclasses.dataclass
@@ -422,14 +423,21 @@ class DecodeEngine:
     def decode_quantum(self, k: int) -> torch.Tensor:
         """k lock-step decode steps on the device; returns [k + 1, S]:
         the emitted tokens (-1 = idle lane) and, last, the active flags.
-        Every step computes all S rows and attends over each row's whole
-        cache buffer (span ``engine.step``: ``rows``, ``keys_read``)."""
+        Every step computes all S rows (span ``engine.step``: ``rows``,
+        and ``keys_read``, the cache positions its attention reads: the
+        sum of the active rows' spans, on the device, where the step runs
+        the ``kv_decode`` kernel; every row's whole buffer where it runs
+        the einsum)."""
         emitted = []
         rows = self._last.shape[0]
-        keys_read = rows * self._cache["k"].shape[2]
         for _ in range(k):
-            with metrics.span("engine.step", rows=rows, keys_read=keys_read):
+            with metrics.span("engine.step", rows=rows) as step:
                 active = self._active
+                if step:
+                    spans = kv_decode_spans(self._cfg, self._cache,
+                                            self._pos, 1, active)
+                    step.add(keys_read=rows * self._cache["k"].shape[2]
+                             if spans is None else (spans[1] - spans[0]).sum())
                 logits, _ = forward_cached(
                     self._params, self._last[:, None], self._cache,
                     self._pos, self._cfg, prefill_from_zero=False,

@@ -43,6 +43,8 @@ from typing import Any
 import torch
 
 from tpushare_torch import metrics
+from tpushare_torch.kernels.kv_decode import kv_decode
+from tpushare_torch.kernels.kv_decode import takes as kv_decode_takes
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
     flash_attention, sliding_window_mask)
@@ -61,9 +63,12 @@ class ModelConfig:
     d_ff: int = 14336
     rope_theta: float = 500000.0
     dtype: Any = torch.bfloat16
-    # "einsum" or "flash" (the CUDA kernel). KV-cached decode steps use
-    # the einsum core either way; a prefill from position 0 with "flash"
-    # runs the kernel over the prompt chunk
+    # "einsum" or "flash" (the CUDA kernel). KV-cached steps use the
+    # einsum core either way, except a bf16 decode step (T = 1) at
+    # head_dim 128 against an int8 cache without a ring, which runs the
+    # kv_decode kernel; a
+    # prefill from position 0 with "flash" runs the kernel over the prompt
+    # chunk
     attn: str = "einsum"
     attn_window: int | None = None
     # KV-cache storage: "model" keeps cfg.dtype, "int8" stores symmetric
@@ -696,9 +701,76 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def kv_decode_spans(cfg: ModelConfig, cache: dict, pos_offset, T: int,
+                    write_rows: torch.Tensor | None = None):
+    """The keys each row's decode query reads on the ``kv_decode`` path:
+    ``(lo, hi)`` int32 [B] on the cache's device, row b attending ``lo[b]
+    <= m < hi[b]``, or None where :func:`forward_cached` takes the einsum
+    path instead. The kernel path is a decode step (T = 1) against an int8
+    cache without a ring (a ring's watermark gives no contiguous span).
+    For a query at position p, ``hi = p + 1`` and ``lo = p - W + 1`` under
+    a window W (else 0), clamped into [0, M]; a row that ``write_rows``
+    marks False gets ``hi = lo`` (nothing read, output 0). The kernel
+    takes bf16 queries at head_dim 128 only (``kv_decode.takes``); other
+    models keep the einsum."""
+    if cfg.kv_cache_dtype != "int8" or T != 1 or "pos" in cache or \
+            not kv_decode_takes(cfg.dtype, cfg.head_dim,
+                                cfg.n_heads // cfg.n_kv_heads):
+        return None
+    B, M = cache["k"].shape[1:3]
+    dev = cache["k"].device
+    if isinstance(pos_offset, torch.Tensor):
+        p = pos_offset.to(dev, torch.int32)
+    else:
+        p = torch.full((B,), int(pos_offset), dtype=torch.int32, device=dev)
+    hi = (p + 1).clamp(0, M)
+    lo = torch.zeros_like(hi) if cfg.attn_window is None else \
+        (p + 1 - cfg.attn_window).clamp(0, M)
+    lo = torch.minimum(lo, hi)
+    if write_rows is not None:
+        hi = torch.where(write_rows.to(dev), hi, lo)
+    return lo, hi
+
+
 def _kv_quant(x: torch.Tensor):
     """[B, T, n_kv, hd] -> (int8 values, fp32 scales [B, T, n_kv, 1])."""
     return _sym_int8(x, dim=-1)
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     ks: torch.Tensor | None, vs: torch.Tensor | None,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-query attention of q ``[B, T, nh, hd]`` over a cache buffer
+    k, v ``[B, M, nkv, hd]`` under ``mask`` ``[B|1, T, M]`` (True =
+    visible), without expanding the cache; returns ``[B, T, nh * hd]``.
+    An int8 buffer comes with its scales ks, vs ``[B, M, nkv, 1]``, which
+    factor out of both contractions and apply to the [.., M] scores and
+    probabilities instead; a buffer in q's dtype comes with None. Scores
+    come out of the product in q's dtype and are then cast to fp32, and
+    the probabilities go back to q's dtype before the PV product, as in
+    the reference. A row with no visible key comes out NaN."""
+    B, T, nh, hd = q.shape
+    nkv = k.shape[2]
+    if ks is not None:
+        kd, vd = k.to(q.dtype), v.to(q.dtype)
+        ks_t = ks[..., 0].transpose(1, 2)                       # [B,nkv,M]
+        vs_t = vs[..., 0].transpose(1, 2)
+    else:
+        kd, vd = k, v
+    # g = kv head, r = queries per group
+    qg = q.reshape(B, T, nkv, nh // nkv, hd)
+    scores = torch.einsum("btgrd,bmgd->bgrtm", qg, kd).float()
+    if ks is not None:
+        scores = scores * ks_t[:, :, None, None, :]
+    scores = scores * (hd ** -0.5)
+    # [B|1, 1, 1, T, M] against scores [B, g, r, T, M]
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    if ks is not None:
+        probs = probs * vs_t[:, :, None, None, :]
+    probs = probs.to(q.dtype)
+    attn = torch.einsum("bgrtm,bmgd->btgrd", probs, vd)
+    return attn.reshape(B, T, nh * hd)
 
 
 def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
@@ -714,8 +786,15 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     each row's own offset (the engine's slots, which the reference maps
     with vmap). Their K/V are written into ``cache`` IN PLACE (the port
     updates the buffers instead of copying them), then attention runs
-    over the whole buffer under a causal position mask. Returns
-    ``(logits [B, T, vocab] fp32, cache)``.
+    over the buffer under a causal position mask. Returns ``(logits [B,
+    T, vocab] fp32, cache)``.
+
+    A bf16 decode step (T = 1) at head_dim 128 against an int8 cache
+    without a ring reads only each row's live keys: :func:`kv_decode_spans`
+    gives each row its span and the ``kv_decode`` kernel attends it, with
+    no mask. Every other step (T > 1, a ring, a cache in the model's dtype,
+    other dtypes or widths) runs :func:`cached_attention` over the whole
+    buffer.
 
     A cache with "pos" is a ring (:func:`init_kv_cache` ``rolling=True``):
     writes land at ``pos % M`` and the mask reads each slot's recorded
@@ -734,9 +813,6 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     """
     params, mesh = parallel.localize(params)
     B, T = tokens.shape
-    hd = cfg.head_dim
-    nh, nkv = local_heads(params, cfg, mesh)
-    reps = nh // nkv
     dev = tokens.device
     M = cache["k"].shape[2]
     rolling = "pos" in cache
@@ -758,6 +834,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     elif not per_row and not 0 <= int(pos_offset) <= M - T:
         raise ValueError(f"chunk at {int(pos_offset)}..{int(pos_offset) + T}"
                          f" outside the {M}-slot cache")
+    spans = kv_decode_spans(cfg, cache, pos_offset, T, write_rows)
 
     x = params["embed"][tokens]
     steps = torch.arange(T, device=dev)
@@ -792,13 +869,14 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
         new_pos = None
         cols = q_pos.expand(B, T) if (per_row or write_rows is not None) \
             else None
-        key_pos = torch.arange(M, device=dev)
-        q_b = q_pos if per_row else q_pos[None]
-        mask = key_pos[None, None, :] <= q_b[:, :, None]        # [B|1, T, M]
-        if cfg.attn_window is not None:
-            mask = mask & sliding_window_mask(q_b[:, :, None],
-                                              key_pos[None, None, :],
-                                              cfg.attn_window)
+        if spans is None:
+            key_pos = torch.arange(M, device=dev)
+            q_b = q_pos if per_row else q_pos[None]
+            mask = key_pos[None, None, :] <= q_b[:, :, None]    # [B|1, T, M]
+            if cfg.attn_window is not None:
+                mask = mask & sliding_window_mask(q_b[:, :, None],
+                                                  key_pos[None, None, :],
+                                                  cfg.attn_window)
 
     def write(buf, new):
         new = new.to(buf.dtype)
@@ -816,49 +894,30 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     flash_prefill = (cfg.attn == "flash" and T > 1 and not rolling
                      and prefill_from_zero)
     int8_cache = cfg.kv_cache_dtype == "int8"
-    # [B|1, 1, 1, T, M] against scores [B, g, r, T, M]
-    score_mask = mask[:, None, None]
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"]), mesh)
         q, k, v = _qkv(h, lp, positions, cfg, mesh)
         ck, cv = cache["k"][i], cache["v"][i]
+        ks = vs = None
         if int8_cache:
-            kq8, ks = _kv_quant(k)
-            vq8, vs = _kv_quant(v)
+            ks, vs = cache["ks"][i], cache["vs"][i]
+            kq8, kscale = _kv_quant(k)
+            vq8, vscale = _kv_quant(v)
             write(ck, kq8)
             write(cv, vq8)
-            write(cache["ks"][i], ks)
-            write(cache["vs"][i], vs)
+            write(ks, kscale)
+            write(vs, vscale)
         else:
             write(ck, k)
             write(cv, v)
         if flash_prefill:
             attn_flat = _flash_core(q, k, v, cfg)
+        elif spans is not None:
+            attn_flat = kv_decode(q[:, 0], ck, cv, ks, vs, *spans)[:, None]
         else:
-            if int8_cache:
-                # the per-key scales factor out of both contractions and
-                # apply to the [.., M] scores and probabilities instead
-                kd, vd = ck.to(x.dtype), cv.to(x.dtype)
-                ks_t = cache["ks"][i][..., 0].transpose(1, 2)   # [B,nkv,M]
-                vs_t = cache["vs"][i][..., 0].transpose(1, 2)
-            else:
-                kd, vd = ck, cv
-            # grouped-query attention against the buffer without
-            # expanding the cache: g = kv head, r = queries per group
-            qg = q.reshape(B, T, nkv, reps, hd)
-            scores = torch.einsum("btgrd,bmgd->bgrtm", qg, kd).float()
-            if int8_cache:
-                scores = scores * ks_t[:, :, None, None, :]
-            scores = scores * (hd ** -0.5)
-            scores = scores.masked_fill(~score_mask, float("-inf"))
-            probs = torch.softmax(scores, dim=-1)
-            if int8_cache:
-                probs = probs * vs_t[:, :, None, None, :]
-            probs = probs.to(x.dtype)
-            attn = torch.einsum("bgrtm,bmgd->btgrd", probs, vd)
-            attn_flat = attn.reshape(B, T, nh * hd)
+            attn_flat = cached_attention(q, ck, cv, ks, vs, mask)
         x = x + _attn_out(attn_flat, lp, cfg, mesh)
         # aux only matters in training
         x, _aux = _ffn_block(x, lp, cfg, mesh)

@@ -396,17 +396,19 @@ def tp_layout(cfg, tp: int) -> tuple[tuple, tuple]:
 
 
 def _rank_stats(device) -> list[float]:
-    """[K1 launches, K4 launches, peak and current bytes allocated]."""
-    from tpushare_torch.kernels import flash
+    """[K1 launches, K4 launches, kv_decode launches, peak and current
+    bytes allocated]."""
+    from tpushare_torch.kernels import flash, kv_decode
     mem = (torch.cuda.max_memory_allocated(device),
            torch.cuda.memory_allocated(device)) \
         if device.type == "cuda" else (0, 0)
-    return [flash.LAUNCHES, flash.LAUNCHES_PIPELINED, *mem]
+    return [flash.LAUNCHES, flash.LAUNCHES_PIPELINED, kv_decode.LAUNCHES,
+            *mem]
 
 
 def _reset_stats(device) -> None:
-    from tpushare_torch.kernels import flash
-    flash.LAUNCHES = flash.LAUNCHES_PIPELINED = 0
+    from tpushare_torch.kernels import flash, kv_decode
+    flash.LAUNCHES = flash.LAUNCHES_PIPELINED = kv_decode.LAUNCHES = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -414,13 +416,13 @@ def _reset_stats(device) -> None:
 def _collect_stats(device) -> list[dict]:
     """Every rank's :func:`_rank_stats`, in rank order (collective)."""
     import torch.distributed as dist
-    buf = torch.zeros((dist.get_world_size(), 4), dtype=torch.float64,
-                      device=device)
+    keys = ("flash_fwd", "flash_fwd_pipelined", "kv_decode",
+            "max_memory_allocated", "memory_allocated")
+    buf = torch.zeros((dist.get_world_size(), len(keys)),
+                      dtype=torch.float64, device=device)
     buf[dist.get_rank()] = torch.tensor(_rank_stats(device),
                                         dtype=torch.float64)
     dist.all_reduce(buf)
-    keys = ("flash_fwd", "flash_fwd_pipelined", "max_memory_allocated",
-            "memory_allocated")
     return [{k: int(v) for k, v in zip(keys, row)} for row in buf.tolist()]
 
 
@@ -514,8 +516,8 @@ class TPReplica:
             return self._decode.prefill(tokens)
 
     def stats(self) -> list[dict]:
-        """Per rank, in rank order: K1 and K4 launches, peak and current
-        bytes allocated on its card (0 on the CPU)."""
+        """Per rank, in rank order: K1, K4 and kv_decode launches, peak
+        and current bytes allocated on its card (0 on the CPU)."""
         with self.op(_STATS):
             return _collect_stats(self.device)
 
