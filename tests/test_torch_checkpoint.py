@@ -27,6 +27,8 @@ FAMILIES = {
     "vit": lambda: tv.PRESETS_VIT["vit-tiny"],
     # bf16 experts beside the fp32 router
     "moe": lambda: tm.PRESETS["llama-moe-tiny"],
+    # the sigmoid router's selection bias, which no optimizer steps
+    "afmoe": lambda: tm.PRESETS["trinity-mini-tiny"],
 }
 
 
@@ -53,10 +55,11 @@ def _trained(cfg, steps=1):
 
 
 def _assert_same_state(a_params, a_opt, b_params, b_opt):
-    la, lb = tm.param_leaves(a_params), tm.param_leaves(b_params)
-    assert len(la) == len(lb)
-    for x, y in zip(la, lb):
+    na, nb = list(tm.named_leaves(a_params)), list(tm.named_leaves(b_params))
+    assert [n for n, _ in na] == [n for n, _ in nb]
+    for (_, x), (_, y) in zip(na, nb):
         assert x.dtype == y.dtype and torch.equal(x, y)
+    la, lb = tm.param_leaves(a_params), tm.param_leaves(b_params)
     for x, y in zip(la, lb):
         sa, sb = a_opt.state[x], b_opt.state[y]
         assert sorted(sa) == sorted(sb) == ["exp_avg", "exp_avg_sq", "step"]
@@ -100,6 +103,22 @@ def test_moe_round_trip_keeps_the_router_state_fp32(tmp_path):
     with pytest.raises(ValueError, match="moe_experts"):
         ckpt.restore(dataclasses.replace(cfg, moe_experts=0), tx,
                      device="cpu")
+
+
+def test_afmoe_round_trip_keeps_the_selection_bias(tmp_path):
+    cfg = FAMILIES["afmoe"]()
+    params, opt, tx, _ = _trained(cfg, steps=2)
+    ckpt = ck.TrainCheckpointer(str(tmp_path))
+    ckpt.save(2, params, opt, cfg)
+    r_params, r_opt, _ = ckpt.restore(cfg, tx, device="cpu")
+    _assert_same_state(params, opt, r_params, r_opt)
+    moe_layers = [lp for lp in r_params["layers"] if "router_bias" in lp]
+    assert len(moe_layers) == cfg.n_layers - cfg.dense_layers
+    for lp in moe_layers:
+        assert lp["router_bias"].dtype == torch.float32
+        assert lp["router_bias"].abs().sum() > 0
+        assert not lp["router_bias"].requires_grad
+        assert lp["router_bias"] not in r_opt.state
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

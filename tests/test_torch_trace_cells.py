@@ -26,12 +26,30 @@ SPAN_METRICS = {
                                  "moe.capacity_use.train"],
     "mistral-7b.train-4k": ["train.backward_ms.train",
                             "train.update_ms.train"],
+    "trinity-mini-l8.train-8k": ["train.backward_ms.train",
+                                 "train.update_ms.train",
+                                 "train.optimizer_ms.train",
+                                 "moe.expert_roofline.train",
+                                 "moe.load_max_over_mean.train"],
 }
+
+
+def tiny(name):
+    """The cell at the benchmark's tiny sizes; an AFMoE cell keeps an MoE
+    layer (``shrink``'s two layers would both be dense): one dense layer,
+    4 held of 16 experts, expert width 32."""
+    cell = shrink(cells.cell(name))
+    conf = cell["config"]
+    if conf.get("model_type") == "afmoe":
+        conf.update(num_dense_layers=1, num_experts=4,
+                    moe_intermediate_size=32)
+        conf["published"] = dict(conf["published"], num_experts=16)
+    return cell
 
 
 @pytest.mark.parametrize("name", sorted(SPAN_METRICS))
 def test_traced_cell_reports_the_program_span_metrics(name):
-    cell = shrink(cells.cell(name))
+    cell = tiny(name)
     assert {m["name"] for m in cell["per_layer"]} >= set(SPAN_METRICS[name])
     out = run.execute(cell, SEED, SECONDS, True, device="cpu", t_start=0.0)
     assert out["correct"] is True, out["checks"]
@@ -52,3 +70,5 @@ def test_traced_cell_reports_the_program_span_metrics(name):
     if name.startswith("mixtral"):
         m = cells.model_sizes(cell["config"])
         assert values["moe.capacity_use.train"] == m["k"] / m["E"] * 100
+    if name.startswith("trinity"):
+        assert values["moe.load_max_over_mean.train"] >= 1

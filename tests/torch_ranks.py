@@ -1,7 +1,7 @@
 """Rank-side halves of the port's multi-rank tests
 (tests/test_torch_parallel.py, tests/test_torch_sharded.py,
 tests/test_torch_ring.py, tests/test_torch_ulysses.py,
-tests/test_torch_pipeline.py).
+tests/test_torch_pipeline.py, tests/test_torch_afmoe.py).
 
 Each function runs in every rank of a gloo world that
 ``tpushare_torch.workloads.parallel.run_ranks`` starts, with
@@ -547,3 +547,26 @@ def rolled_table_rank_main(argv, rank, world, addr, cards) -> None:
     with (mock.patch.object(DecodeEngine, "load_slot_table", rolled)
           if rank == 1 else contextlib.nullcontext()):
         serve._tp_rank_main(argv, rank, world, addr, cards)
+
+
+def afmoe_ep_checks(data: dict) -> dict:
+    """trinity-mini-tiny in fp32 trained ``data["steps"]`` steps on a dp 2
+    x ep 2 mesh (each "ep" rank holds half of the held experts; the
+    selection bias steps from the counts summed over "dp"): each step's
+    loss and every leaf, buffers included, whole."""
+    cfg = dataclasses.replace(tm.PRESETS["trinity-mini-tiny"],
+                              dtype=torch.float32)
+    mesh = parallel.make_mesh("cpu", (2, 1, 2), parallel.MOE_AXES)
+    params = tm.train_params(tm.init_params(
+        cfg, torch.Generator().manual_seed(0), mesh=mesh))
+    tx, step = tm.make_train_step(cfg)
+    opt = tx.init(params)
+    losses = []
+    for tokens in data["tokens"][:data["steps"]]:
+        params, opt, loss = step(params, opt, _rows(tokens, mesh))
+        losses.append(float(loss))
+    experts = params["layers"][-1]["w1"]
+    return {"losses": losses,
+            "local_experts": int(experts.to_local().shape[0]),
+            "leaves": {n: _full(w.detach()).numpy()
+                       for n, w in tm.named_leaves(params)}}

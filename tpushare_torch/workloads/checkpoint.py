@@ -56,8 +56,8 @@ from typing import Any
 import torch
 
 from tpushare_torch.workloads.model import (
-    ModelConfig, init_params, make_train_step, named_leaves, param_specs,
-    train_params)
+    ModelConfig, init_params, make_train_step, named_leaves, named_params,
+    param_specs, train_params)
 from tpushare_torch.workloads.parallel import P
 
 # geometry fields that must match between the checkpoint and the resuming
@@ -150,7 +150,7 @@ def _abstract(params) -> dict:
     into them fills the tree."""
     sd = {f"params.{n}": w.detach() for n, w in named_leaves(params)}
     opt = {}
-    for n, w in named_leaves(params):
+    for n, w in named_params(params):
         opt[f"opt.{n}.step"] = torch.zeros((), dtype=torch.float32)
         for key in ("exp_avg", "exp_avg_sq"):
             opt[f"opt.{n}.{key}"] = torch.empty_like(w.detach())
@@ -176,9 +176,13 @@ def train_state_dict(params, opt_state) -> dict:
     """The flat DCP state dict of a trainable tree and its optimizer:
     ``params.<path>`` and ``opt.<path>.<key>`` (``step``, ``exp_avg``,
     ``exp_avg_sq``; none before the first step), sharing the live
-    tensors' storage."""
+    tensors' storage. The state a layer keeps beside its weights
+    (:data:`~tpushare_torch.workloads.model.BUFFERS`, an AFMoE router's
+    selection bias) is saved as ``params.<path>`` with no optimizer
+    state."""
     leaves = list(named_leaves(params))
-    if [id(p) for p in _opt_params(opt_state)] != [id(w) for _, w in leaves]:
+    if [id(p) for p in _opt_params(opt_state)] != \
+            [id(w) for _, w in named_params(params)]:
         raise ValueError("the optimizer does not hold this tree's leaves "
                          "in its order; build it with tx.init(params)")
     sd = {}
@@ -408,7 +412,7 @@ def _load_state(path: Path, params, opt_state, abstract: dict) -> None:
     with _single_process():
         dcp.load(load, checkpoint_id=path, no_dist=_no_dist())
     state = {i: {sk: load[k] for sk, k in opt_keys[name].items()}
-             for i, (name, _) in enumerate(named_leaves(params))
+             for i, (name, _) in enumerate(named_params(params))
              if name in opt_keys}
     sd = opt_state.state_dict()
     sd["state"] = state

@@ -49,7 +49,7 @@ from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.attention import (
     flash_attention, sliding_window_mask)
 from tpushare_torch.workloads.moe import (
-    MoEConfig, init_moe_params, moe_ffn, moe_param_specs)
+    MoEConfig, init_moe_params, moe_ffn, moe_param_specs, update_router_bias)
 from tpushare_torch.workloads.parallel import P
 
 
@@ -79,25 +79,73 @@ class ModelConfig:
     # width d_ff
     moe_experts: int = 0
     moe_top_k: int = 2
-    moe_capacity_factor: float = 2.0
+    # None: dropless (every routed pair computed, moe._dropless)
+    moe_capacity_factor: float | None = 2.0
     moe_aux_weight: float = 0.01
+    # "llama", or "afmoe": Arcee's AFMoE (Trinity) block, which adds
+    # RMSNorm of each query and key head (g_q, g_k), the attention output
+    # gated by sigmoid(h wgate), RMSNorm of the attention and FFN outputs
+    # before their residual adds (post_attn_norm, post_ffn_norm), the
+    # embedding times sqrt(d_model), RoPE on windowed layers only, and
+    # dropless sigmoid routing with no load-balancing loss
+    block: str = "llama"
+    # the width of a head where it is not d_model / n_heads (see head_dim)
+    head_size: int | None = None
+    rms_norm_eps: float = 1e-6
+    # an AFMoE block's window for each layer (None = full attention);
+    # other blocks take attn_window on every layer
+    layer_windows: tuple | None = None
+    # AFMoE: the leading dense layers (of width d_ff), the experts' width
+    # (None = d_ff), the gates' scale, a shared expert's width (0 = none)
+    # and the selection bias's step (0 = fixed)
+    dense_layers: int = 0
+    moe_d_ff: int | None = None
+    moe_route_scale: float = 1.0
+    moe_shared_d_ff: int = 0
+    moe_bias_rate: float = 0.0
+    # the experts [lo, hi) this model holds of the moe_experts it routes
+    # over (None = all)
+    moe_held: tuple | None = None
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_size or self.d_model // self.n_heads
+
+    @property
+    def afmoe(self) -> bool:
+        """AFMoE's block, which the cached serving path, tensor
+        parallelism and the pipeline do not take."""
+        return self.block == "afmoe"
 
     @property
     def moe(self) -> MoEConfig | None:
         """MoEConfig for the FFN, or None when dense."""
         if self.moe_experts <= 0:
             return None
-        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+        return MoEConfig(d_model=self.d_model, d_ff=self.moe_d_ff or self.d_ff,
                          n_experts=self.moe_experts, top_k=self.moe_top_k,
                          capacity_factor=self.moe_capacity_factor,
-                         dtype=self.dtype)
+                         dtype=self.dtype,
+                         score="sigmoid" if self.afmoe else "softmax",
+                         route_scale=self.moe_route_scale,
+                         shared_d_ff=self.moe_shared_d_ff,
+                         held=self.moe_held)
+
+    def window_of(self, layer: int) -> int | None:
+        if self.layer_windows is None:
+            return self.attn_window
+        return self.layer_windows[layer]
+
+    def rope_of(self, layer: int) -> bool:
+        """RoPE on every layer; an AFMoE block's on windowed layers only."""
+        return not self.afmoe or self.window_of(layer) is not None
+
+    def moe_layer(self, layer: int) -> bool:
+        return self.moe_experts > 0 and layer >= self.dense_layers
 
     def validate(self) -> "ModelConfig":
-        if self.d_model % self.n_heads or self.n_heads % self.n_kv_heads:
+        if (self.head_size is None and self.d_model % self.n_heads) \
+                or self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"d_model {self.d_model} / n_heads {self.n_heads} / "
                 f"n_kv_heads {self.n_kv_heads} do not divide")
@@ -107,6 +155,31 @@ class ModelConfig:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
         if self.attn not in ("einsum", "flash"):
             raise ValueError(f"attn {self.attn!r}")
+        if self.block not in ("llama", "afmoe"):
+            raise ValueError(f"block {self.block!r}")
+        if not self.afmoe and (self.layer_windows is not None
+                               or self.dense_layers or self.moe_shared_d_ff
+                               or self.moe_bias_rate):
+            raise ValueError("layer_windows, dense_layers, moe_shared_d_ff "
+                             "and moe_bias_rate belong to block='afmoe'")
+        if self.layer_windows is not None and (
+                len(self.layer_windows) != self.n_layers
+                or any(w is not None and w < 1 for w in self.layer_windows)):
+            raise ValueError(f"layer_windows {self.layer_windows} for "
+                             f"{self.n_layers} layers")
+        if self.dense_layers and (self.moe_experts <= 0
+                                  or self.dense_layers > self.n_layers):
+            raise ValueError(
+                f"dense_layers {self.dense_layers} need an MoE model of at "
+                f"least as many layers")
+        if self.afmoe and self.moe_experts > 0 \
+                and self.moe_capacity_factor is not None:
+            raise ValueError("AFMoE's sigmoid routing is dropless: "
+                             "moe_capacity_factor must be None")
+        if self.moe_held is not None and not (
+                0 <= self.moe_held[0] < self.moe_held[1] <= self.moe_experts):
+            raise ValueError(f"moe_held {self.moe_held} outside the "
+                             f"{self.moe_experts} experts")
         return self
 
 
@@ -123,6 +196,55 @@ PRESETS = {
 }
 
 
+def afmoe_config(vocab: int, d_model: int, layer_types: list,
+                 n_heads: int, n_kv_heads: int, head_dim: int, d_ff: int,
+                 dense_layers: int, n_experts: int, top_k: int, moe_d_ff: int,
+                 shared_d_ff: int, window: int, route_scale: float,
+                 bias_rate: float, held: tuple | None = None,
+                 rope_theta: float = 10000.0, eps: float = 1e-5,
+                 **kw) -> ModelConfig:
+    """An Arcee AFMoE (Trinity) model as a :class:`ModelConfig`: per layer
+    a window on "sliding_attention" layers (with RoPE) and full attention
+    without RoPE on "full_attention" ones; QK-norm, the sigmoid gate on
+    attention's output, the sandwich norms, the embedding times
+    sqrt(d_model); ``dense_layers`` leading dense layers of width
+    ``d_ff``, then dropless sigmoid-routed experts of width ``moe_d_ff``
+    with a shared expert, the gates renormalised and scaled, and the
+    selection bias stepped by ``bias_rate``; no load-balancing loss."""
+    return ModelConfig(
+        vocab=vocab, d_model=d_model, n_layers=len(layer_types),
+        n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=d_ff,
+        rope_theta=rope_theta, block="afmoe", head_size=head_dim,
+        rms_norm_eps=eps,
+        layer_windows=tuple(window if t == "sliding_attention" else None
+                            for t in layer_types),
+        dense_layers=dense_layers, moe_experts=n_experts, moe_top_k=top_k,
+        moe_capacity_factor=None, moe_aux_weight=0.0, moe_d_ff=moe_d_ff,
+        moe_route_scale=route_scale,
+        moe_shared_d_ff=shared_d_ff, moe_bias_rate=bias_rate, moe_held=held,
+        **kw)
+
+
+_TRINITY_TYPES = ["sliding_attention"] * 3 + ["full_attention"]
+PRESETS.update({
+    # Trinity-Mini's block at CPU-test widths: head_dim != d_model / heads,
+    # S S S F S S (one dense layer), 4 of 16 experts held, top-4
+    "trinity-mini-tiny": afmoe_config(
+        vocab=256, d_model=64, layer_types=(_TRINITY_TYPES * 2)[:6],
+        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=96, dense_layers=1,
+        n_experts=16, top_k=4, moe_d_ff=32, shared_d_ff=32, window=24,
+        route_scale=2.826, bias_rate=1e-3, held=(0, 4)),
+    # arcee-ai/Trinity-Mini's widths, layers 0-7 (2 dense, 6 MoE; S S S F
+    # twice), one card's share of 8: experts 0-15 of 128, an eighth of
+    # the vocabulary
+    "trinity-mini-l8": afmoe_config(
+        vocab=25024, d_model=2048, layer_types=_TRINITY_TYPES * 2,
+        n_heads=32, n_kv_heads=4, head_dim=128, d_ff=6144, dense_layers=2,
+        n_experts=128, top_k=8, moe_d_ff=1024, shared_d_ff=1024,
+        window=2048, route_scale=2.826, bias_rate=1e-3, held=(0, 16)),
+})
+
+
 # -- init ---------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None,
@@ -135,6 +257,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     in its order (wg, left fp32, then w1, w3, w2), giving the reference's
     ``[L, d, E]`` router and ``[L, E, d, f]`` / ``[L, E, f, d]`` experts.
 
+    AFMoE's leaves (:func:`afmoe_config`) follow in the layer's order:
+    g_q and g_k (ones) and wgate after wv, post_attn_norm after wo,
+    post_ffn_norm last; an MoE model's leading dense layers draw
+    ``dense_w1``, ``dense_w3``, ``dense_w2`` (``[dense_layers, ...]``)
+    before the MoE stacks (``[n_layers - dense_layers, ...]``), and a
+    sigmoid router's zero buffers ``router_bias`` and ``router_load``
+    (float32 ``[.., E]``) follow them.
+
     ``int8`` returns ``quantize_int8`` of those weights. With a ``mesh``
     every rank draws the same values, one weight stack at a time and a
     piece at a time, keeps its shard under :func:`param_specs` (with
@@ -142,6 +272,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     sharded) and returns DTensors. ``generator`` None allocates the same
     tree on ``device`` without drawing: a target to load into."""
     cfg.validate()
+    _check_mesh(cfg, mesh)
     dev = generator.device if generator is not None else torch.device(
         device or "cpu")
     L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
@@ -172,17 +303,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
         "wq": w("wq", L, d, nh * hd, fan_in=d),
         "wk": w("wk", L, d, nkv * hd, fan_in=d),
         "wv": w("wv", L, d, nkv * hd, fan_in=d),
-        "wo": w("wo", L, nh * hd, d, fan_in=nh * hd),
-        "ffn_norm": ones("ffn_norm", L, d),
     }
+    if cfg.afmoe:
+        layers.update(g_q=ones("g_q", L, hd), g_k=ones("g_k", L, hd))
+        layers["wgate"] = w("wgate", L, d, nh * hd, fan_in=d)
+    layers["wo"] = w("wo", L, nh * hd, d, fan_in=nh * hd)
+    if cfg.afmoe:
+        layers["post_attn_norm"] = ones("post_attn_norm", L, d)
+    layers["ffn_norm"] = ones("ffn_norm", L, d)
     if cfg.moe_experts > 0:
+        Ld = cfg.dense_layers
+        if Ld:
+            layers.update({"dense_w1": w("dense_w1", Ld, d, f, fan_in=d),
+                           "dense_w3": w("dense_w3", Ld, d, f, fan_in=d),
+                           "dense_w2": w("dense_w2", Ld, f, d, fan_in=f)})
         layers.update(init_moe_params(
-            cfg.moe, generator, lead=(L,), mesh=mesh, device=dev,
+            cfg.moe, generator, lead=(L - Ld,), mesh=mesh, device=dev,
             specs=None if specs is None else specs["layers"]))
     else:
         layers.update({"w1": w("w1", L, d, f, fan_in=d),
                        "w3": w("w3", L, d, f, fan_in=d),
                        "w2": w("w2", L, f, d, fan_in=f)})
+    if cfg.afmoe:
+        layers["post_ffn_norm"] = ones("post_ffn_norm", L, d)
     return {"embed": embed, "layers": layers,
             "final_norm": ones("final_norm", d, top=True),
             "lm_head": w("lm_head", d, v, fan_in=d, top=True)}
@@ -209,7 +352,8 @@ def param_specs(cfg: ModelConfig) -> dict:
     the in-projections, the input dim of the out-projections: one
     all-reduce after wo and one after w2 per block), MoE experts over
     "ep" (moe_param_specs with the layer axis prepended), lm_head's vocab
-    over "tp"."""
+    over "tp". AFMoE's leaves take the specs of their kind (wgate like wq,
+    the norms replicated); :func:`_check_mesh` refuses them on "tp"."""
     layers = {
         "attn_norm": P(None, None),
         "wq": P(None, None, "tp"),
@@ -218,9 +362,18 @@ def param_specs(cfg: ModelConfig) -> dict:
         "wo": P(None, "tp", None),
         "ffn_norm": P(None, None),
     }
+    if cfg.afmoe:
+        layers.update({"g_q": P(None, None), "g_k": P(None, None),
+                       "wgate": P(None, None, "tp"),
+                       "post_attn_norm": P(None, None),
+                       "post_ffn_norm": P(None, None)})
     if cfg.moe_experts > 0:
+        if cfg.dense_layers:
+            layers.update({"dense_w1": P(None, None, "tp"),
+                           "dense_w3": P(None, None, "tp"),
+                           "dense_w2": P(None, "tp", None)})
         layers.update({name: P(None, *spec)
-                       for name, spec in moe_param_specs().items()})
+                       for name, spec in moe_param_specs(cfg.moe).items()})
     else:
         layers.update({
             "w1": P(None, None, "tp"),
@@ -237,6 +390,14 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def batch_spec() -> P:
     return P("dp", None)
+
+
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    if cfg.afmoe and parallel.axis_size(mesh, "tp") > 1:
+        raise ValueError(
+            "AFMoE's layers (per-layer windows, QK-norm, the attention "
+            "gate, sandwich norms, dense and shared FFNs, sigmoid routing) "
+            "are not split over 'tp'; use 'dp' and 'ep'")
 
 
 def quant_specs(specs: dict) -> dict:
@@ -319,21 +480,46 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def _stack_index(name: str, n: int, L: int, i: int) -> int | None:
+    """Where layer ``i`` of ``L`` lies in a stack of ``n`` layers named
+    ``name``: every layer's stack holds all L; a shorter one holds an MoE
+    model's leading dense layers (named ``dense_*``) or the MoE layers
+    after them; None where the layer has no such weight."""
+    if n == L:
+        return i
+    if name.startswith("dense_"):
+        return i if i < n else None
+    return i - (L - n) if i >= L - n else None
+
+
+def _stack_len(w) -> int:
+    return (w["int8"] if isinstance(w, dict) else w).shape[0]
+
+
 def _layer(params: dict, i: int) -> dict:
     """Layer ``i``'s parameters out of the stacked tree, or out of the
     per-layer list of a :func:`train_params` tree."""
     if isinstance(params["layers"], list):
         return params["layers"][i]
-    return {n: ({"int8": w["int8"][i], "scale": w["scale"][i]}
-                if isinstance(w, dict) else w[i])
-            for n, w in params["layers"].items()}
+    stacks = params["layers"]
+    L = max(_stack_len(w) for w in stacks.values())
+    out = {}
+    for n, w in stacks.items():
+        j = _stack_index(n, _stack_len(w), L, i)
+        if j is not None:
+            out[n] = ({"int8": w["int8"][j], "scale": w["scale"][j]}
+                      if isinstance(w, dict) else w[j])
+    return out
 
 
 # -- forward ------------------------------------------------------------------
 
-def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, g: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in fp32; the model passes its
+    ``rms_norm_eps``, and 1e-6 is the JAX reference's fixed eps."""
     x32 = x.float()
-    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
+    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * rms).to(x.dtype) * g
 
 
@@ -396,9 +582,10 @@ def _gathered(w, mesh):
 
 
 def _qkv(h: torch.Tensor, lp: dict, positions: torch.Tensor,
-         cfg: ModelConfig, mesh=None):
-    """Projections + RoPE shared by the cached and uncached layers, at
-    the heads this rank computes (:func:`_head_plan`)."""
+         cfg: ModelConfig, mesh=None, layer: int = 0):
+    """Projections (AFMoE's QK-norm) + RoPE (where layer
+    ``layer`` takes it) shared by the cached and uncached layers, at the
+    heads this rank computes (:func:`_head_plan`)."""
     B, T = h.shape[:2]
     hd = cfg.head_dim
     wq, wk, wv = lp["wq"], lp["wk"], lp["wv"]
@@ -416,6 +603,11 @@ def _qkv(h: torch.Tensor, lp: dict, positions: torch.Tensor,
         q = q[:, :, plan["q"][0]:plan["q"][1]]
     if plan is not None and plan["gather_kv"]:
         k, v = (t[:, :, plan["kv"][0]:plan["kv"][1]] for t in (k, v))
+    if cfg.afmoe:
+        q = _rmsnorm(q, lp["g_q"], cfg.rms_norm_eps)
+        k = _rmsnorm(k, lp["g_k"], cfg.rms_norm_eps)
+    if not cfg.rope_of(layer):
+        return q, k, v
     return (_rope(q, positions, cfg.rope_theta),
             _rope(k, positions, cfg.rope_theta), v)
 
@@ -430,48 +622,57 @@ def _attn_out(attn: torch.Tensor, lp: dict, cfg: ModelConfig, mesh):
     return parallel.reduce_from(_matmul(attn, lp["wo"]), mesh)
 
 
-def _ffn_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
-    """Residual + RMSNorm + FFN; returns ``(x, aux)``: the layer's MoE
-    load-balance loss, or 0 for the dense SwiGLU. On a mesh, w1 and w3
-    are column-parallel and w2 row-parallel over "tp"."""
-    h = _rmsnorm(x, lp["ffn_norm"])
-    if cfg.moe_experts > 0:
+def _ffn_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None,
+               layer: int = 0):
+    """Residual + RMSNorm + FFN (+ AFMoE's RMSNorm of its output);
+    returns ``(x, aux)``: the layer's MoE load-balance loss, or 0 for a
+    dense SwiGLU (an MoE model's leading dense layers read ``dense_w*``).
+    On a mesh, w1 and w3 are column-parallel and w2 row-parallel over
+    "tp"."""
+    h = _rmsnorm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+    if cfg.moe_layer(layer):
         y, aux = moe_ffn(lp, h, cfg.moe, mesh=mesh)
-        return x + y, aux
-    h = parallel.copy_to(h, mesh)
-    gated = torch.nn.functional.silu(_matmul(h, lp["w1"])) \
-        * _matmul(h, lp["w3"])
-    return (x + parallel.reduce_from(_matmul(gated, lp["w2"]), mesh),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    else:
+        pre = "dense_" if cfg.moe_experts > 0 else ""
+        h = parallel.copy_to(h, mesh)
+        gated = torch.nn.functional.silu(_matmul(h, lp[pre + "w1"])) \
+            * _matmul(h, lp[pre + "w3"])
+        y = parallel.reduce_from(_matmul(gated, lp[pre + "w2"]), mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.afmoe:
+        y = _rmsnorm(y, lp["post_ffn_norm"], cfg.rms_norm_eps)
+    return x + y, aux
 
 
-def _flash_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+def _flash_core(q, k, v, window: int | None) -> torch.Tensor:
     """Causal(+window) flash attention of [B, T, H, D] projections,
     GQA-native; returns [B, T, H*D]."""
     B, T = q.shape[:2]
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
-                        window=cfg.attn_window)
+                        v.transpose(1, 2), causal=True, window=window)
     return o.transpose(1, 2).reshape(B, T, -1)
 
 
 def decoder_layer(x: torch.Tensor, lp: dict, positions: torch.Tensor,
                   cfg: ModelConfig, mask: torch.Tensor | None = None,
-                  mesh=None):
-    """One transformer block: x [B, S, d] -> (x, aux). ``mask`` [S, S]
+                  mesh=None, layer: int = 0):
+    """Block ``layer``: x [B, S, d] -> (x, aux). ``mask`` [S, S]
     overrides the causal mask on the einsum backend; the flash backend
-    takes only the default causal mask and raises otherwise. ``lp`` holds
-    plain tensors (a rank's shards on ``mesh``)."""
+    takes only the default causal mask and raises otherwise. The layer's
+    window (:meth:`ModelConfig.window_of`) masks either backend. ``lp``
+    holds plain tensors (a rank's shards on ``mesh``)."""
     B, S = x.shape[:2]
     hd = cfg.head_dim
-    h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"]), mesh)
-    q, k, v = _qkv(h, lp, positions, cfg, mesh)
+    window = cfg.window_of(layer)
+    h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps),
+                         mesh)
+    q, k, v = _qkv(h, lp, positions, cfg, mesh, layer)
     if cfg.attn == "flash":
         if mask is not None:
             raise ValueError(
                 "the flash backend supports only the default causal mask; "
                 "use attn='einsum' for custom masks")
-        attn = _flash_core(q, k, v, cfg)
+        attn = _flash_core(q, k, v, window)
     else:
         reps = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(reps, dim=2)
@@ -479,21 +680,27 @@ def decoder_layer(x: torch.Tensor, lp: dict, positions: torch.Tensor,
         pos = torch.arange(S, device=x.device)
         if mask is None:
             mask = pos[None, :] <= pos[:, None]
-        if cfg.attn_window is not None:
+        if window is not None:
             mask = mask & sliding_window_mask(pos[:, None], pos[None, :],
-                                              cfg.attn_window)
+                                              window)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (hd ** -0.5)
         scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, -1)
-    x = x + _attn_out(attn, lp, cfg, mesh)
-    return _ffn_block(x, lp, cfg, mesh)
+    if cfg.afmoe:
+        attn = attn * torch.sigmoid(_matmul(h, lp["wgate"]))
+    a = _attn_out(attn, lp, cfg, mesh)
+    if cfg.afmoe:
+        a = _rmsnorm(a, lp["post_attn_norm"], cfg.rms_norm_eps)
+    return _ffn_block(x + a, lp, cfg, mesh, layer)
 
 
-def _head(x: torch.Tensor, params: dict, mesh) -> torch.Tensor:
+def _head(x: torch.Tensor, params: dict, cfg: ModelConfig,
+          mesh) -> torch.Tensor:
     """Final norm and lm_head: fp32 logits over the whole vocab (gathered
     from the "tp" ranks' vocab shards on a mesh)."""
-    x = parallel.copy_to(_rmsnorm(x, params["final_norm"]), mesh)
+    x = parallel.copy_to(_rmsnorm(x, params["final_norm"], cfg.rms_norm_eps),
+                         mesh)
     logits = _matmul(x, params["lm_head"]).float()
     return parallel.gather_last(logits, mesh)
 
@@ -509,15 +716,18 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     the layers' MoE load-balance losses; 0 for dense models). On a mesh
     the tokens are this rank's rows of the batch (its "dp" shard)."""
     params, mesh = parallel.localize(params)
+    _check_mesh(cfg, mesh)
     B, S = tokens.shape
     x = params["embed"][tokens]
+    if cfg.afmoe:
+        x = x * cfg.d_model ** 0.5
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     auxs = []
     for i in range(cfg.n_layers):
         x, aux = decoder_layer(x, _layer(params, i), positions, cfg,
-                               mesh=mesh)
+                               mesh=mesh, layer=i)
         auxs.append(aux)
-    return _head(x, params, mesh), torch.stack(auxs).mean()
+    return _head(x, params, cfg, mesh), torch.stack(auxs).mean()
 
 
 # -- loss / train step --------------------------------------------------------
@@ -529,7 +739,10 @@ def train_params(params: dict) -> dict:
     list with one dict of leaves per layer. Every leaf is a detached view
     sharing the stacked tensors' storage and requires a gradient; the
     optimizer updates it in place, so the stacked tree (the one serving
-    reads) sees every step. int8 weights do not train."""
+    reads) sees every step. int8 weights do not train. An MoE model's
+    shorter stacks (leading dense layers, MoE layers after them) give their
+    layers' leaves only; :data:`BUFFERS` are views that take no
+    gradient."""
     layers = params["layers"]
     if any(isinstance(w, dict)
            for w in (*params.values(), *layers.values()) if w is not layers):
@@ -550,9 +763,16 @@ def train_params(params: dict) -> dict:
         return DTensor.from_local(w.to_local()[i], w.device_mesh, pls,
                                   run_check=False)
 
-    n_layers = next(iter(layers.values())).shape[0]
-    per_layer = [{n: leaf(layer(w, i)) for n, w in layers.items()}
-                 for i in range(n_layers)]
+    n_layers = max(w.shape[0] for w in layers.values())
+    per_layer = []
+    for i in range(n_layers):
+        lp = {}
+        for n, w in layers.items():
+            j = _stack_index(n, w.shape[0], n_layers, i)
+            if j is not None:
+                v = layer(w, j)
+                lp[n] = v.detach() if n in BUFFERS else leaf(v)
+        per_layer.append(lp)
     return {k: per_layer if k == "layers" else leaf(w)
             for k, w in params.items()}
 
@@ -571,11 +791,23 @@ def named_leaves(params, prefix: str = ""):
                                 else str(key))
 
 
+# state a layer keeps beside its weights, which no gradient or optimizer
+# touches: the sigmoid router's selection bias and its step's counts
+BUFFERS = ("router_bias", "router_load")
+
+
+def named_params(params):
+    """:func:`named_leaves` less the :data:`BUFFERS`: the leaves that
+    train."""
+    return ((path, w) for path, w in named_leaves(params)
+            if path.rsplit(".", 1)[-1] not in BUFFERS)
+
+
 def param_leaves(params) -> list:
-    """The leaves of a trainable tree in :func:`named_leaves` order: for
-    llama's embed, each layer's weights, final_norm, lm_head. One
+    """The leaves of a trainable tree that train (:func:`named_params`):
+    for llama's embed, each layer's weights, final_norm, lm_head. One
     :class:`AdamW` serves both families."""
-    return [w for _, w in named_leaves(params)]
+    return [w for _, w in named_params(params)]
 
 
 def next_token_loss(logits: torch.Tensor, aux: torch.Tensor,
@@ -638,14 +870,28 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 3e-4,
     tx = AdamW(learning_rate)
     return tx, _sharded_step(
         lambda params, tokens: loss_fn(params, tokens, cfg,
-                                       forward_fn=forward_fn))
+                                       forward_fn=forward_fn),
+        after=_router_bias_step(cfg) if cfg.moe_bias_rate else None)
 
 
-def _sharded_step(loss_of):
+def _router_bias_step(cfg: ModelConfig):
+    """The update of each MoE layer's selection bias from the pairs its
+    experts took in the step (:func:`moe.update_router_bias`)."""
+    def after(params, mesh):
+        local, _ = parallel.localize(params["layers"])
+        for lp in local:
+            if "router_load" in lp:
+                update_router_bias(lp["router_bias"], lp["router_load"],
+                                   cfg.moe_bias_rate, mesh)
+    return after
+
+
+def _sharded_step(loss_of, after=None):
     """The step shared by both families: ``loss_of(params, *batch)`` is
     this rank's loss over its rows of the batch. Traced, its spans
-    ``train.bwd`` and ``train.update`` (the "dp" mean, the optimizer and
-    ``zero_grad``) carry device times on a card."""
+    ``train.bwd`` and ``train.update`` (the "dp" mean, the optimizer,
+    ``zero_grad`` and then ``after(params, mesh)``, the state the
+    optimizer does not step) carry device times on a card."""
     def train_step(params, opt_state, *batch):
         loss = loss_of(params, *batch)
         cuda = loss.is_cuda
@@ -656,6 +902,8 @@ def _sharded_step(loss_of):
             parallel.dp_mean_grads(param_leaves(params), mesh)
             opt_state.step()
             opt_state.zero_grad(set_to_none=True)
+            if after is not None:
+                after(params, mesh)
         return params, opt_state, parallel.mean_over(loss.detach(), mesh)
 
     return train_step
@@ -811,6 +1059,9 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
     ``write_rows`` [B] bool: rows where False leave the cache (and ring
     positions) untouched; their logits are computed and meaningless.
     """
+    if cfg.afmoe:
+        raise ValueError("the cached serving path does not take AFMoE's "
+                         "layers (a cache for window and full layers)")
     params, mesh = parallel.localize(params)
     B, T = tokens.shape
     dev = tokens.device
@@ -897,7 +1148,8 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"]), mesh)
+        h = parallel.copy_to(_rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps),
+                             mesh)
         q, k, v = _qkv(h, lp, positions, cfg, mesh)
         ck, cv = cache["k"][i], cache["v"][i]
         ks = vs = None
@@ -913,7 +1165,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
             write(ck, k)
             write(cv, v)
         if flash_prefill:
-            attn_flat = _flash_core(q, k, v, cfg)
+            attn_flat = _flash_core(q, k, v, cfg.attn_window)
         elif spans is not None:
             attn_flat = kv_decode(q[:, 0], ck, cv, ks, vs, *spans)[:, None]
         else:
@@ -923,7 +1175,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict,
         x, _aux = _ffn_block(x, lp, cfg, mesh)
     if rolling:
         cache["pos"].copy_(new_pos)
-    return _head(x, params, mesh), cache
+    return _head(x, params, cfg, mesh), cache
 
 
 def greedy_decode_kv(params: dict, prompt: torch.Tensor, steps: int,

@@ -21,6 +21,21 @@ The routing contract is the reference's:
 capacity: the behavioural spec, equal to :func:`moe_ffn` when nothing
 drops.
 
+Dropless (``capacity_factor`` None, the AFMoE family's routing): the
+router scores every expert (softmax as above, or ``score="sigmoid"``:
+each expert's sigmoid, chosen by the top-k of score plus a selection
+bias that takes no gradient, the kept scores renormalised and scaled by
+``route_scale``); the (token, k) pairs whose expert this layer holds are
+stably sorted by expert, gathered once, run through grouped SwiGLU
+products over the held experts (``torch._grouped_mm`` on a card in bf16,
+a loop over the experts elsewhere), written to their own (token, k) row
+of a ``[T, k, d]`` buffer and summed over k: deterministic, with no
+float atomics. A layer may hold a range of the experts it routes over
+(``held``, one card's share under expert parallelism), and a shared
+expert that every token takes. The per-expert counts over all experts
+accumulate in the layer's ``router_load`` buffer, from which
+:func:`update_router_bias` moves the selection bias after each step.
+
 Expert parallelism (:func:`moe_param_specs`): the experts shard over the
 "ep" mesh axis and the router is replicated. Each rank routes every
 token with the replicated router, computes the dispatch and combine
@@ -50,8 +65,21 @@ class MoEConfig:
     d_ff: int            # per-expert hidden width
     n_experts: int
     top_k: int = 2
-    capacity_factor: float = 1.25
+    # None: dropless (every routed pair computed)
+    capacity_factor: float | None = 1.25
     dtype: torch.dtype = torch.bfloat16
+    # "softmax" (gates renormalised over the kept k) or "sigmoid" (chosen
+    # by score + selection bias, renormalised, times route_scale)
+    score: str = "softmax"
+    route_scale: float = 1.0
+    # width of the shared expert every token takes; 0 = none
+    shared_d_ff: int = 0
+    # [lo, hi): the experts this layer holds; None = all n_experts
+    held: tuple[int, int] | None = None
+
+    @property
+    def held_range(self) -> tuple[int, int]:
+        return self.held or (0, self.n_experts)
 
     def capacity(self, n_tokens: int) -> int:
         """Per-expert token slots for a batch of ``n_tokens``: the
@@ -62,15 +90,22 @@ class MoEConfig:
         return max(cap, 1)
 
 
-def moe_param_specs() -> dict:
+def moe_param_specs(cfg: MoEConfig | None = None) -> dict:
     """The spec tree of one layer's MoE weights: the experts shard over
-    the "ep" mesh axis, the router is replicated."""
-    return {
+    the "ep" mesh axis; the router, and where ``cfg`` has them a shared
+    expert and the sigmoid router's buffers, are replicated."""
+    specs = {
         "wg": P(None, None),
         "w1": P("ep", None, None),
         "w3": P("ep", None, None),
         "w2": P("ep", None, None),
     }
+    if cfg is not None and cfg.shared_d_ff:
+        specs.update({"shared_w1": P(None, None), "shared_w3": P(None, None),
+                      "shared_w2": P(None, None)})
+    if cfg is not None and cfg.score == "sigmoid":
+        specs.update({"router_bias": P(None), "router_load": P(None)})
+    return specs
 
 
 def init_moe_params(cfg: MoEConfig, generator: torch.Generator | None,
@@ -84,20 +119,38 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator | None,
     :func:`moe_param_specs`, with ``lead``'s axes unsharded) as DTensors;
     ``generator`` None allocates on ``device`` without drawing."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    lo, hi = cfg.held_range
     if specs is None and mesh is not None:
         specs = {n: P(*([None] * len(lead)), *s)
-                 for n, s in moe_param_specs().items()}
+                 for n, s in moe_param_specs(cfg).items()}
+
+    def wrap(name, own):
+        return own if mesh is None else parallel.as_dtensor(
+            own, specs[name], mesh)
 
     def normal(name, *shape, fan_in, dtype):
         spec = specs[name] if mesh is not None else None
         own, _ = parallel.draw((*lead, *shape), generator, fan_in ** -0.5,
                                dtype, spec, mesh, device=device)
-        return own if mesh is None else parallel.as_dtensor(own, spec, mesh)
+        return wrap(name, own)
 
-    return {"wg": normal("wg", d, E, fan_in=d, dtype=torch.float32),
-            "w1": normal("w1", E, d, f, fan_in=d, dtype=cfg.dtype),
-            "w3": normal("w3", E, d, f, fan_in=d, dtype=cfg.dtype),
-            "w2": normal("w2", E, f, d, fan_in=f, dtype=cfg.dtype)}
+    out = {"wg": normal("wg", d, E, fan_in=d, dtype=torch.float32),
+           "w1": normal("w1", hi - lo, d, f, fan_in=d, dtype=cfg.dtype),
+           "w3": normal("w3", hi - lo, d, f, fan_in=d, dtype=cfg.dtype),
+           "w2": normal("w2", hi - lo, f, d, fan_in=f, dtype=cfg.dtype)}
+    if cfg.shared_d_ff:
+        fs = cfg.shared_d_ff
+        out.update({"shared_w1": normal("shared_w1", d, fs, fan_in=d,
+                                        dtype=cfg.dtype),
+                    "shared_w3": normal("shared_w3", d, fs, fan_in=d,
+                                        dtype=cfg.dtype),
+                    "shared_w2": normal("shared_w2", fs, d, fan_in=fs,
+                                        dtype=cfg.dtype)})
+    if cfg.score == "sigmoid":
+        dev = device if generator is None else generator.device
+        for name in ("router_bias", "router_load"):
+            out[name] = wrap(name, torch.zeros((*lead, E), device=dev))
+    return out
 
 
 def _topk_gates(probs: torch.Tensor, top_k: int):
@@ -131,7 +184,8 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int,
 
     Traced, span ``moe.route`` counts the capacity ``slots`` (E' x C),
     the token-expert ``pairs`` (T x k) and, summed on the device from
-    the [k, E] counts, the pairs ``kept`` in a slot of E'."""
+    the [k, E] counts, the pairs ``kept`` in a slot of E', the pairs
+    ``held`` (routed to E') and ``max_load`` (:func:`_load_attrs`)."""
     T, E = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
     masks, gates = _topk_gates(probs, top_k)
@@ -178,24 +232,125 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int,
         start = before + torch.cumsum(everyone, dim=0) - everyone
         end = start + counts[parallel.axis_rank(mesh, "dp")]
         kept = end.clamp(max=capacity) - start.clamp(max=capacity)
-        route.add(kept=kept[:, lo:hi].sum())
+        route.add(kept=kept[:, lo:hi].sum(),
+                  **_load_attrs(counts[parallel.axis_rank(mesh, "dp")].sum(
+                      dim=0), lo, hi))
         route.end()
     return dispatch, combine, aux
 
 
+def _load_attrs(load: torch.Tensor, lo: int, hi: int) -> dict:
+    """Span attributes from the pairs routed to each of all E experts
+    (``load`` [E]), as 0-d device tensors: the pairs ``held`` ([lo, hi))
+    and ``max_load``, the largest count over the mean k T / E."""
+    return {"held": load[lo:hi].sum(),
+            "max_load": load.max().float() / (load.sum().float()
+                                              / load.shape[0])}
+
+
+def _choose(logits: torch.Tensor, cfg: MoEConfig,
+            bias: torch.Tensor | None):
+    """fp32 routing of router logits [T, E] over every expert: (idx [T, k]
+    the chosen experts, w [T, k] their fp32 gates, aux). Softmax: each k
+    the first maximum of what is left, gates renormalised over the k (as
+    :func:`_topk_gates`), aux the Switch loss. Sigmoid: the top-k of
+    score + ``bias`` (no gradient through the choice), gates the chosen
+    scores renormalised and times ``route_scale``, aux 0."""
+    if cfg.score == "sigmoid":
+        scores = torch.sigmoid(logits)
+        pick = scores.detach() if bias is None else scores.detach() + bias
+        idx = torch.topk(pick, cfg.top_k, dim=-1).indices
+        kept = scores.gather(-1, idx)
+        w = cfg.route_scale * kept / kept.sum(dim=-1, keepdim=True)
+        return idx, w, torch.zeros((), device=logits.device)
+    probs = torch.softmax(logits, dim=-1)
+    masks, gates = _topk_gates(probs, cfg.top_k)
+    idx = torch.stack([m.argmax(dim=-1) for m in masks], dim=-1)
+    aux = logits.shape[-1] * (masks[0].mean(dim=0) * probs.mean(dim=0)).sum()
+    return idx, torch.stack(gates, dim=-1), aux
+
+
+def _expert_products(xs: torch.Tensor, params: dict, counts: torch.Tensor,
+                     sizes: list) -> torch.Tensor:
+    """SwiGLU of each held expert over its rows of ``xs`` (rows grouped
+    by expert, ``sizes`` of them a group, ``counts`` the same on the
+    device): grouped products on a card in bf16, else one expert at a
+    time."""
+    w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if xs.is_cuda and xs.dtype == torch.bfloat16:
+        offs = torch.cumsum(counts, dim=0, dtype=torch.int32)
+        h = (F.silu(torch._grouped_mm(xs, w1, offs=offs))
+             * torch._grouped_mm(xs, w3, offs=offs))
+        return torch._grouped_mm(h, w2, offs=offs)
+    outs, start = [], 0
+    for e, n in enumerate(sizes):
+        xe = xs[start:start + n]
+        outs.append((F.silu(xe @ w1[e]) * (xe @ w3[e])) @ w2[e])
+        start += n
+    return torch.cat(outs)
+
+
+def _dropless(params: dict, xt: torch.Tensor, idx: torch.Tensor,
+              w: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The held experts' part of the output for tokens ``xt`` [T, d]
+    routed to ``idx`` [T, k] with gates ``w``: the (token, k) pairs whose
+    expert lies in [lo, hi), stably sorted by expert (pair order within
+    one), gathered, through :func:`_expert_products`, scaled by their
+    gate in the activations' dtype, written to their own row of a [T, k,
+    d] buffer and summed over k. Reads the per-expert counts on the host
+    once (the groups' sizes). Traced, span ``moe.experts`` (device time)
+    holds the grouped products and their sizes."""
+    T, k = idx.shape
+    n, d = hi - lo, xt.shape[-1]
+    local = (idx - lo).reshape(-1)
+    key = torch.where((local >= 0) & (local < n), local,
+                      torch.full_like(local, n))
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n + 1)[:n]
+    sizes = counts.tolist()
+    pairs = order[:sum(sizes)]
+    xs = xt[pairs // k]
+    with metrics.span("moe.experts", device=xt.is_cuda, pairs=len(pairs),
+                      experts=n, d=d, f=params["w1"].shape[-1]):
+        out = _expert_products(xs, params, counts, sizes)
+    vals = out * w.reshape(-1)[pairs].to(out.dtype)[:, None]
+    buf = xt.new_zeros((T * k, d)).index_put((pairs,), vals)
+    return buf.reshape(T, k, d).sum(dim=1)
+
+
+def _shared(params: dict, xt: torch.Tensor) -> torch.Tensor:
+    return (F.silu(xt @ params["shared_w1"])
+            * (xt @ params["shared_w3"])) @ params["shared_w2"]
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     """x [..., d_model] -> (y [..., d_model], aux loss scalar fp32).
-    ``params`` holds (at least) "wg", "w1", "w3" and "w2". The leading
-    dims are flattened: capacity is per call over all T tokens (on a
-    "dp" axis, over the global batch's). A dropped token's y is zero.
-    On a mesh with an "ep" axis the experts are this rank's shard."""
+    ``params`` holds (at least) "wg", "w1", "w3" and "w2", with a shared
+    expert "shared_w1", "shared_w3", "shared_w2", and for the sigmoid
+    router its "router_bias" and "router_load" buffers. The leading dims
+    are flattened: capacity is per call over all T tokens (on a "dp"
+    axis, over the global batch's). A dropped token's y is zero. The
+    experts held are ``cfg.held`` (all by default); on a mesh with an
+    "ep" axis this rank's shard of them, which must split them evenly.
+    Without a capacity the routing is dropless (:func:`_dropless`), and
+    in a forward that records gradients (a training step) the pairs
+    routed to each of all E experts are added to "router_load" where the
+    layer has one."""
     params, mesh = parallel.localize(params, mesh)
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    C = cfg.capacity(xt.shape[0] * parallel.axis_size(mesh, "dp"))
     logits = xt.float() @ params["wg"]
     n_local = params["w1"].shape[0]
-    e0 = parallel.axis_rank(mesh, "ep") * n_local
+    lo, hi = cfg.held_range
+    if n_local * parallel.axis_size(mesh, "ep") != hi - lo:
+        raise ValueError(
+            f"experts [{lo}, {hi}) do not split into the {n_local} a rank "
+            f"holds over {parallel.axis_size(mesh, 'ep')} 'ep' ranks")
+    e0 = lo + parallel.axis_rank(mesh, "ep") * n_local
+    if cfg.capacity_factor is None:
+        y, aux = _routed(params, xt, logits, cfg, (e0, e0 + n_local), mesh)
+        return y.reshape(*lead, d), aux
+    C = cfg.capacity(xt.shape[0] * parallel.axis_size(mesh, "dp"))
     dispatch, combine, aux = _route(logits, cfg.top_k, C,
                                     (e0, e0 + n_local), mesh)
     # the gates round to the activations' dtype before the products
@@ -209,22 +364,65 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     return y.reshape(*lead, d), aux
 
 
+def _routed(params: dict, xt: torch.Tensor, logits: torch.Tensor,
+            cfg: MoEConfig, experts: tuple[int, int], mesh):
+    """The dropless layer: route every token over all E, the held
+    experts' part summed over "ep", plus the shared expert once. Traced,
+    span ``moe.route`` counts the ``pairs`` (T x k), and ``held`` and
+    ``max_load`` as :func:`_route` does."""
+    T, E = logits.shape
+    route = metrics.span("moe.route", pairs=T * cfg.top_k).begin()
+    idx, w, aux = _choose(logits, cfg, params.get("router_bias"))
+    lo, hi = experts
+    count = "router_load" in params and torch.is_grad_enabled()
+    if route or count:
+        load = torch.bincount(idx.reshape(-1), minlength=E)
+        if count:
+            params["router_load"].add_(load)
+        if route:
+            route.add(**_load_attrs(load, lo, hi))
+            route.end()
+    w = parallel.copy_to(w, mesh, "ep")
+    y = _dropless(params, parallel.copy_to(xt, mesh, "ep"), idx, w, lo, hi)
+    y = parallel.reduce_from(y, mesh, "ep")
+    if cfg.shared_d_ff:
+        y = y + _shared(params, xt)
+    return y, aux
+
+
+@torch.no_grad()
+def update_router_bias(bias: torch.Tensor, load: torch.Tensor,
+                       rate: float, mesh=None) -> None:
+    """After a step: move the selection bias [.., E] towards an even load,
+    ``b += rate * (s - mean(s))`` with ``s = sign(mean(c) - c)`` and c
+    the pairs routed to each expert over the step's tokens (summed over
+    "dp"), then empty the counts."""
+    c = parallel.all_reduce_sum(load, mesh, "dp")
+    s = torch.sign(c.mean(dim=-1, keepdim=True) - c)
+    bias.add_(rate * (s - s.mean(dim=-1, keepdim=True)))
+    load.zero_()
+
+
 def moe_ffn_reference(params: dict, x: torch.Tensor,
                       cfg: MoEConfig) -> torch.Tensor:
-    """Every expert on every token, output the gate-weighted sum over
-    each token's top-k experts, no capacity: equal to :func:`moe_ffn`
-    when nothing drops."""
+    """Every held expert on every token, output the gate-weighted sum
+    over each token's top-k experts that are held (and the shared expert),
+    no capacity: equal to :func:`moe_ffn` when nothing drops."""
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    probs = torch.softmax(xt.float() @ params["wg"], dim=-1)
-    masks, gates = _topk_gates(probs, cfg.top_k)
+    lo, hi = cfg.held_range
+    idx, gates, _ = _choose(xt.float() @ params["wg"], cfg,
+                            params.get("router_bias"))
     h = (F.silu(torch.einsum("td,edf->etf", xt, params["w1"]))
          * torch.einsum("td,edf->etf", xt, params["w3"]))
     all_out = torch.einsum("etf,efd->etd", h, params["w2"])
     y = torch.zeros_like(xt)
-    for mask, gate in zip(masks, gates):
-        w = (mask * gate[:, None]).to(x.dtype)                  # [T, E]
+    for j in range(cfg.top_k):
+        mask = F.one_hot(idx[:, j], cfg.n_experts)[:, lo:hi]
+        w = (mask * gates[:, j, None]).to(x.dtype)              # [T, E']
         y = y + torch.einsum("te,etd->td", w, all_out)
+    if cfg.shared_d_ff:
+        y = y + _shared(params, xt)
     return y.reshape(*lead, d)
 
 

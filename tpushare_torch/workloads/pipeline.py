@@ -113,6 +113,8 @@ def pipelined_forward_with_aux(params: dict, tokens: torch.Tensor,
     L = cfg.n_layers
     if L % n_stages:
         raise ValueError(f"{L} layers not divisible by {n_stages} stages")
+    if cfg.afmoe:
+        raise ValueError("the pipeline runs uniform layers, not AFMoE's")
     B, S = tokens.shape
     M = microbatches or n_stages
     if B % M:
@@ -155,7 +157,7 @@ def pipelined_forward_with_aux(params: dict, tokens: torch.Tensor,
     y = parallel.reduce_from(parallel.tie(y, state), mesh, axis)
     aux = parallel.reduce_from(torch.stack(auxs).sum(), mesh, axis) \
         / (n_stages * M)
-    x = _rmsnorm(y, params["final_norm"])
+    x = _rmsnorm(y, params["final_norm"], cfg.rms_norm_eps)
     logits = _matmul(x, params["lm_head"]).float()
     return logits, aux
 
