@@ -58,7 +58,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                KV cache, ``--attn flash``, continuous batching) answering
                HTTP requests; the launch counts must show every prefill
                went through K1 and every decode step's layers through
-               ``kv_decode``.
+               ``kv_decode`` (a step the engine's CUDA graph replays
+               counts its layers' launches). Then, on the same weights,
+               an engine of the chat cell's pool (32 slots of 4096, every
+               slot busy) times its decode step untraced, eager and
+               replayed in turns, and counts each one's host launches.
 6b. shard   -- data, tensor and expert parallelism, ranks sharing the one
                card over gloo: (a) ``samples/5-serving.yaml`` as deployed,
                the llama-8b int8 replica with ``--tp 4 --engine`` (four
@@ -1355,9 +1359,11 @@ class Smoke:
         metrics = urllib.request.urlopen(url + "/metrics", timeout=30).read()
         if b"tpushare_serve_tokens_generated_total" not in metrics:
             raise AssertionError("/metrics lacks the token counter")
+        graph = decode_graph(front.engine.params, cfg)
         self.results["serve"] = {
             "requests": prefills, "launches": launches,
             "kv_decode_launches": kv_launches, "decode_steps": steps,
+            "decode_graph": graph,
             "ttft_ms": traffic["ttft_s"] * 1e3,
             "stream_s": traffic["stream_s"],
             "stream_decode_tokens_per_s":
@@ -2581,6 +2587,118 @@ def engine_traffic(url: str, vocab: int, reset, read) -> dict:
             "stream_decode_tokens_per_s": (long - 1) / (stream_s - ttft),
             "four_requests_tokens_per_s": 4 * long / together_s,
             "together_s": together_s, "batch_s": batch_s, "main_s": main_s}
+
+
+# the chat cell's slot pool, its prompts' median length and a quantum
+GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_PLEN, GRAPH_K = 32, 4096, 1020, 8
+# host calls that put work on the card's queue
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def host_launches(fn) -> int:
+    """Host calls that launch device work while ``fn()`` runs (the
+    profiler's CUDA runtime and driver events), with the program's spans
+    off as in an untraced run (a recorded ``engine.step`` adds its
+    ``keys_read`` sum)."""
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tpushare_torch import metrics
+    with mock.patch.object(metrics, "span", lambda *a, **kw: metrics.OFF), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+
+
+def decode_graph(params, cfg) -> dict:
+    """The decode step as the engine's CUDA graph, on the serve phase's
+    weights at the chat cell's pool: every slot busy with a prompt of
+    about 1020 tokens, then, untraced and synchronised, quanta of 8
+    eager steps (the engine's private step) and 8 replayed ones
+    (``decode_quantum``, whose first call captures) in turns, eager,
+    graph, graph, eager; the capture's seconds and the graph's memory
+    (the card's reserved bytes before and after it); and one quantum of
+    each under the profiler, counting host launches a step."""
+    import torch
+    from tpushare_torch.workloads.engine import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, GRAPH_SLOTS, GRAPH_MAX_LEN,
+                       quantum=GRAPH_K)
+    rng = torch.Generator().manual_seed(17)
+    for i in range(GRAPH_SLOTS):
+        n = GRAPH_PLEN + 16 * (i - GRAPH_SLOTS // 2)
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=rng).tolist(),
+                   GRAPH_MAX_LEN - GRAPH_PLEN - 16 * GRAPH_SLOTS)
+    capture = eng._capture
+    took: dict = {}
+
+    def timed_capture():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        out = capture()
+        torch.cuda.synchronize()
+        took["s"] = time.perf_counter() - t0
+        took["pool_bytes"] = torch.cuda.memory_reserved() - reserved
+        return out
+
+    eng._capture = timed_capture
+
+    def eager():
+        with torch.inference_mode():
+            for _ in range(GRAPH_K):
+                eng._step()
+
+    def graph():
+        eng.decode_quantum(GRAPH_K).cpu()
+
+    def ms_a_step(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / GRAPH_K
+
+    eager()
+    graph()  # captures
+    times = {"eager": [], "graph": []}
+    for name, fn in (("eager", eager), ("graph", graph), ("graph", graph),
+                     ("eager", eager)):
+        for _ in range(3):
+            times[name].append(ms_a_step(fn))
+    # a quantum's launches over its steps (the replayed one's: a replay
+    # and a copy of its row a step, and the quantum's row of flags)
+    launches = {"eager": host_launches(eager) / GRAPH_K,
+                "graph": host_launches(graph) / GRAPH_K}
+    out = {"slots": GRAPH_SLOTS, "max_len": GRAPH_MAX_LEN, "k": GRAPH_K,
+           "step_ms": times,
+           "step_ms_median": {k: statistics.median(v)
+                              for k, v in times.items()},
+           "host_launches_a_step": launches, "capture_s": took["s"],
+           "graph_pool_bytes": took["pool_bytes"],
+           "graph_kv_decode_launches": eng._graph_launches}
+    if eng._graph_launches != cfg.n_layers:
+        raise AssertionError(f"decode graph: {eng._graph_launches} "
+                             f"kv_decode launches a replay != "
+                             f"{cfg.n_layers} layers")
+    log(f"serve: decode step at {GRAPH_SLOTS} slots of {GRAPH_MAX_LEN} "
+        f"(every slot busy), untraced: eager "
+        f"{out['step_ms_median']['eager']:.2f} ms, replayed "
+        f"{out['step_ms_median']['graph']:.2f} ms (medians of "
+        f"{len(times['eager'])} quanta of {GRAPH_K}); host launches a "
+        f"step {launches['eager']:.2f} eager, {launches['graph']:.2f} "
+        f"replayed; "
+        f"capture {took['s']:.2f} s, graph pool "
+        f"{took['pool_bytes'] / 2**20:.1f} MiB")
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def post(url: str, body: dict) -> list:

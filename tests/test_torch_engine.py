@@ -9,6 +9,8 @@ sampling is tested by its invariances, not against JAX).
 """
 
 import dataclasses
+from types import SimpleNamespace
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from tpushare.workloads import model as jm
+from benchmark import cells
 from tpushare.workloads.engine import DecodeEngine as JaxEngine
 from tpushare_torch.workloads import engine as te
 from tpushare_torch.workloads import model as tm
@@ -242,3 +245,114 @@ def test_rejections():
 def test_bucket():
     assert [te._bucket(n) for n in (1, 8, 9, 100, 512)] == \
         [8, 8, 16, 128, 512]
+
+
+# -- the step's slot state in place (what a CUDA graph of the step needs) ----
+
+SLOT_TENSORS = ("_pos", "_last", "_active", "_remaining", "_rkey",
+                "_slot_temp", "_slot_topp", "_slot_eos")
+
+
+def _storage(eng) -> dict:
+    out = {n: getattr(eng, n).data_ptr() for n in SLOT_TENSORS}
+    out.update({f"cache.{n}": t.data_ptr() for n, t in eng._cache.items()})
+    return out
+
+
+def test_slot_tensors_keep_their_storage(serving):
+    # quanta with submits between them, slots freed and taken again: the
+    # step writes the slot state in place, never rebinding a tensor
+    params, cfg = serving
+    eng = DecodeEngine(params, cfg, max_slots=3, max_len=64, quantum=3)
+    before = _storage(eng)
+    eng.submit([1, 2, 3], 4)
+    eng.submit([9] * 12, 7)
+    eng.run_quantum()
+    eng.submit([5, 6], 9)
+    eng.run_quantum(k=2)
+    eng.drain()
+    eng.submit([4] * 5, 3)
+    eng.run_quantum(k=1)
+    assert _storage(eng) == before
+    assert eng._graph is None  # a CPU engine steps eagerly
+
+
+def test_load_slot_table_writes_into_the_engines_buffers(serving):
+    params, cfg = serving
+    src = DecodeEngine(params, cfg, max_slots=4, max_len=64,
+                       per_request_sampling=True, eos_id=7)
+    src.submit([1, 2, 3], 6, temperature=0.5, top_p=0.8)
+    src.submit([8] * 9, 5, eos_id=3)
+    src.run_quantum(k=2)
+    dst = DecodeEngine(params, cfg, max_slots=4, max_len=64,
+                       per_request_sampling=True)
+    before = _storage(dst)
+    dst.load_slot_table(*src.slot_table())
+    assert _storage(dst) == before
+    for a, b in zip(dst.slot_table(), src.slot_table()):
+        assert torch.equal(a, b)
+    assert dst._active.dtype == torch.bool
+
+
+def test_rolling_engine_samples_beside_slots_without_keys():
+    # an idle ring slot that holds no key yet has NaN logits; nucleus
+    # sampling over every row keeps that row's floor index in range
+    jcfg, tcfg = _cfgs(attn_window=4)
+    _, pt = _params(jcfg)
+    eng = DecodeEngine(pt, tcfg, max_slots=3, max_len=16, quantum=3,
+                       rolling=True, per_request_sampling=True, seed=2)
+    rid = eng.submit([5, 9, 4], 6, temperature=0.9, top_p=0.9)
+    toks = eng.drain()[rid]
+    assert len(toks) == 6 and all(0 <= t < tcfg.vocab for t in toks)
+
+
+def _traced_steps(fn) -> list:
+    from tpushare_torch import metrics
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        fn()
+    return metrics.last_session()
+
+
+def test_cpu_engine_steps_are_eager(serving):
+    params, cfg = serving
+    eng = DecodeEngine(params, cfg, max_slots=2, max_len=64, quantum=3)
+    eng.submit([1, 2, 3], 8)
+    spans = _traced_steps(eng.drain)
+    steps = [s for s in spans if s.name == "engine.step"]
+    assert len(steps) == 9 and {s.attrs["graph"] for s in steps} == {0}
+    assert eng._graph is None
+    reader = cells.reader("engine.graph_step_share.serve")
+    with mock.patch("tpushare_torch.metrics.last_session",
+                    return_value=spans):
+        assert reader.read({}) == 0
+
+
+def _span(name, id_, parent=None, **attrs):
+    return SimpleNamespace(name=name, id=id_, parent=parent, attrs=attrs)
+
+
+# handmade spans: two quanta of two steps each, the graph attribute of
+# each step (None: the attribute absent), the share the reader gives
+GRAPH_SHARES = {"all replayed": ([1, 1, 1, 1], 100.0),
+                "none replayed": ([0, 0, 0, 0], 0.0),
+                "mixed": ([0, 1, 1, 1], 75.0),
+                "no attribute": ([None] * 4, 0.0)}
+
+
+@pytest.mark.parametrize("name", list(GRAPH_SHARES))
+def test_graph_step_share_reader(name):
+    graphs, share = GRAPH_SHARES[name]
+    spans = [_span("engine.quantum", 0), _span("engine.quantum", 1),
+             # a step outside any quantum is not counted
+             _span("engine.step", 9, graph=0)]
+    for i, g in enumerate(graphs):
+        attrs = {"rows": 4} if g is None else {"rows": 4, "graph": g}
+        spans.append(_span("engine.step", 10 + i, parent=i // 2, **attrs))
+    reader = cells.reader("engine.graph_step_share.serve")
+    with mock.patch("tpushare_torch.metrics.last_session",
+                    return_value=spans):
+        assert reader.read({}) == share
+    with mock.patch("tpushare_torch.metrics.last_session",
+                    return_value=spans[:3]):
+        assert reader.read({}) is None

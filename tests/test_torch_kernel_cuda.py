@@ -475,3 +475,160 @@ def test_kv_decode_matches_plain(cuda, case):
     assert err <= KV_TOL
     lo, hi = args[-2:]
     assert not out[hi <= lo].any()  # an inactive row reads nothing: 0
+
+
+# -- the decode step as a CUDA graph (workloads/engine.py) -------------------
+
+# name -> (engine arguments, window): greedy; sampled per request beside
+# greedy co-tenants; rolling slots (a ring the einsum attends, no
+# kv_decode) sampled by the engine's temperature, top-k and top-p
+GRAPH_CASES = {"greedy": ({}, None),
+               "per-request": ({"per_request_sampling": True, "seed": 7},
+                               None),
+               "rolling": ({"rolling": True, "temperature": 0.8,
+                            "top_k": 40, "top_p": 0.9, "seed": 3}, 16)}
+# (prompt length, budget, per-request temperature), submitted two, one,
+# then two at a time between quanta of 3, 1, 4 and 3 steps: slots join
+# mid-flight, finish inside a quantum and are taken again
+GRAPH_REQUESTS = [(5, 9, 0.0), (37, 4, 0.9), (12, 6, 0.0), (20, 8, 0.7),
+                  (3, 7, 0.0)]
+
+
+def _graph_model(dev, window):
+    """A Mistral-shaped model at a small width: bf16, head_dim 128, 4
+    query heads a kv head, int8 weights and KV cache, flash prefill."""
+    import dataclasses
+
+    from tpushare_torch.workloads import model
+    cfg = dataclasses.replace(model.PRESETS["llama-tiny"], d_model=512,
+                              n_heads=4, n_kv_heads=1, d_ff=1024,
+                              dtype=torch.bfloat16, attn="flash",
+                              kv_cache_dtype="int8", attn_window=window)
+    with torch.inference_mode():
+        params = model.quantize_int8(model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0)))
+    return params, cfg
+
+
+def _graph_schedule(eng, eos: dict, logits: list) -> list:
+    """The staggered requests through ``run_quantum``; returns, per
+    quantum that decoded, (its emitted block, the logits of its last
+    step, the streams it finished). ``eos``: request -> its stop token
+    (request ids follow the submissions); ``logits``: the list the
+    decode steps' logits are appended to."""
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, eng.cfg.vocab, (n,), generator=gen).tolist()
+               for n, _, _ in GRAPH_REQUESTS]
+    decode = eng.decode_quantum
+    blocks, out = [], []
+
+    def kept(k):
+        blocks.append(decode(k).cpu())
+        return blocks[-1]
+
+    eng.decode_quantum = kept
+
+    def submit(i):
+        n, budget, temp = GRAPH_REQUESTS[i]
+        kw = {"temperature": temp} if eng._per_request else {}
+        eng.submit(prompts[i], budget, eos_id=eos.get(i), **kw)
+
+    def quantum(k):
+        if eng.resident:
+            finished = eng.run_quantum(k)
+            out.append((blocks[-1], logits[-1].clone(), finished))
+
+    submit(0)
+    submit(1)
+    quantum(3)
+    submit(2)
+    quantum(1)
+    quantum(4)
+    submit(3)
+    submit(4)
+    while eng.resident:
+        quantum(3)
+    return out
+
+
+def _eager(eng):
+    """``eng`` with every decode step run by its private eager step."""
+    def decode_quantum(k):
+        with torch.inference_mode():
+            rows = [eng._step() for _ in range(k)]
+            return torch.stack(rows + [eng._active.long()])
+
+    eng.decode_quantum = decode_quantum
+    return eng
+
+
+@pytest.mark.parametrize("name", list(GRAPH_CASES))
+def test_replayed_decode_steps_are_bitwise_the_eager_step(cuda, monkeypatch,
+                                                          name):
+    from tpushare_torch.kernels import kv_decode
+    from tpushare_torch.workloads import engine as te
+
+    kw, window = GRAPH_CASES[name]
+    params, cfg = _graph_model(cuda, window)
+    captures = []
+    # each decode step's (T = 1) logits as the engine's step sees them: a
+    # fresh tensor for an eager step, the graph's own output (which every
+    # replay refills) for the captured one
+    logits = []
+    real_capture, real_forward = te.DecodeEngine._capture, te.forward_cached
+
+    def capture(self):
+        captures.append(self)
+        return real_capture(self)
+
+    def forward(params, tokens, *a, **kw):
+        out, cache = real_forward(params, tokens, *a, **kw)
+        if tokens.shape[1] == 1:
+            logits.append(out if torch.cuda.is_current_stream_capturing()
+                          else out.clone())
+        return out, cache
+
+    monkeypatch.setattr(te.DecodeEngine, "_capture", capture)
+    monkeypatch.setattr(te, "forward_cached", forward)
+
+    def engine():
+        return te.DecodeEngine(params, cfg, max_slots=4, max_len=64,
+                               quantum=3, **kw)
+
+    # a request with a stop token stops at the first token of its stream
+    # past the second that it had not emitted before
+    streams = {}
+    for _, _, finished in _graph_schedule(_eager(engine()), {}, logits):
+        streams.update(finished)
+    eos = {i: next(t for j, t in enumerate(s) if j >= 2 and t not in s[:j])
+           for i, s in streams.items()
+           if any(t not in s[:j] for j, t in enumerate(s) if j >= 2)}
+    assert eos, streams
+    want = _graph_schedule(_eager(engine()), eos, logits)
+
+    eng = engine()
+    decode, steps = eng.decode_quantum, [0]
+
+    def counted(k):
+        steps[0] += k
+        return decode(k)
+
+    eng.decode_quantum = counted
+    before = kv_decode.LAUNCHES
+    got = _graph_schedule(eng, eos, logits)
+    torch.cuda.synchronize()
+    assert captures == [eng]
+    assert kv_decode.LAUNCHES - before == \
+        (0 if kw.get("rolling") else cfg.n_layers * steps[0])
+    assert len(got) == len(want) >= 4
+    for (g_block, g_logits, g_done), (w_block, w_logits, w_done) in \
+            zip(got, want):
+        assert torch.equal(g_block, w_block)
+        # bit for bit (an idle ring slot's row is NaN)
+        assert torch.equal(g_logits.view(torch.int32),
+                           w_logits.view(torch.int32))
+        assert g_done == w_done
+    stopped = [i for i, t in eos.items() for _, _, done in got
+               if i in done and done[i][-1] == t
+               and len(done[i]) < GRAPH_REQUESTS[i][1]]
+    assert stopped, (eos, streams)

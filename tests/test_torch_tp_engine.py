@@ -198,7 +198,8 @@ def fp32_world():
         DecodeEngine(params_from_numpy(numpy_params), cfg, **torch_ranks.
                      FP32_ENGINE, **kw)) for name, kw in FP32_RUNS.items()}
     jax_engine = JaxEngine(pj, jcfg, **torch_ranks.FP32_ENGINE)
-    return ranks[0], one, torch_ranks.engine_streams(jax_engine)
+    return (ranks[0]["streams"], one, torch_ranks.engine_streams(jax_engine),
+            [r["step_graphs"] for r in ranks])
 
 
 @pytest.mark.parametrize("name", list(FP32_RUNS))
@@ -207,15 +208,23 @@ def test_fp32_streams_equal_across_tp(fp32_world, name):
     # sampled per request beside greedy co-tenants: the tp=2 engine's
     # streams are the one-card engine's (the counter-keyed draws read the
     # full logits every rank gathers)
-    tp2, tp1, _ = fp32_world
+    tp2, tp1, _, _ = fp32_world
     assert tp2[name] == tp1[name]
     if name != "greedy":
         assert tp2[name] != tp1["greedy"]
 
 
 def test_fp32_greedy_streams_equal_the_jax_engine(fp32_world):
-    tp2, _, jax_streams = fp32_world
+    tp2, _, jax_streams, _ = fp32_world
     assert tp2["greedy"] == jax_streams
+
+
+def test_tp_engine_steps_are_eager(fp32_world):
+    # the ranks' steps run collectives that cross the host, so an engine
+    # on a mesh steps eagerly (here on the CPU; on a card, by its mesh)
+    graphs = fp32_world[3]
+    assert len(graphs) == 2
+    assert all(g and set(g) == {0} for g in graphs), graphs
 
 
 def test_pause_in_mid_stream_leaves_the_ranks_waiting():

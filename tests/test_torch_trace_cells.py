@@ -67,6 +67,8 @@ def test_traced_cell_reports_the_program_span_metrics(name):
             pytest.approx(pads, abs=1e-9)
         assert values["engine.decode_lane_use.serve"] <= 100
         assert values["engine.kv_read_use.serve"] <= 100
+        # a CPU engine steps eagerly: no step replays a CUDA graph
+        assert out["metrics"]["engine.graph_step_share.serve"]["value"] == 0
     if name.startswith("mixtral"):
         m = cells.model_sizes(cell["config"])
         assert values["moe.capacity_use.train"] == m["k"] / m["E"] * 100

@@ -509,7 +509,10 @@ def tp_engine_checks(data: dict) -> dict:
     the tp replica's engine protocol on a (1, 2) mesh, rank 0's
     ``serve._TPEngine`` broadcasting each device call, rank 1's
     ``DecodeEngine`` following in ``serve._rank_loop`` until rank 0
-    sends the stop header. Rank 0 returns {name: streams}."""
+    sends the stop header. Each rank returns ``{"streams": {name:
+    streams} (rank 0's), "step_graphs": [the graph attribute of each
+    engine.step span of its first run]}``."""
+    from tpushare_torch import metrics
     from tpushare_torch.workloads import serve
     from tpushare_torch.workloads.engine import DecodeEngine
 
@@ -518,18 +521,25 @@ def tp_engine_checks(data: dict) -> dict:
     params = parallel.distribute(params_from_numpy(data["params"]),
                                  tm.param_specs(cfg), mesh)
     device = torch.device("cpu")
-    out = {}
+    out, graphs = {}, None
     for name, kw in data["runs"].items():
-        if torch.distributed.get_rank() == 0:
-            replica = serve.TPReplica(None, device, [])
-            out[name] = engine_streams(serve._TPEngine(
-                replica, params, cfg, **FP32_ENGINE, **kw))
-            with replica.op(serve._STOP):
-                pass
-        else:
-            serve._rank_loop(None, device,
-                             DecodeEngine(params, cfg, **FP32_ENGINE, **kw))
-    return out
+        traced = contextlib.nullcontext() if graphs is not None else \
+            torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU])
+        with traced:
+            if torch.distributed.get_rank() == 0:
+                replica = serve.TPReplica(None, device, [])
+                out[name] = engine_streams(serve._TPEngine(
+                    replica, params, cfg, **FP32_ENGINE, **kw))
+                with replica.op(serve._STOP):
+                    pass
+            else:
+                serve._rank_loop(None, device, DecodeEngine(
+                    params, cfg, **FP32_ENGINE, **kw))
+        if graphs is None:
+            graphs = [s.attrs["graph"] for s in metrics.last_session()
+                      if s.name == "engine.step"]
+    return {"streams": out, "step_graphs": graphs}
 
 
 

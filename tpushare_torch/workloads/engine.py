@@ -15,6 +15,12 @@ and the same design:
   co-tenants.
 - **Decode quantum**: the host reads the ``[k, S]`` block of emitted
   tokens once per quantum of ``k`` steps, not once per token.
+- **One launch a step**: on a CUDA card without a tensor-parallel mesh
+  the first quantum captures one decode step as a CUDA graph over the
+  engine's slot tensors and KV pool, which every later step replays. The
+  step updates the slot state in place, so the graph's addresses hold
+  while requests come and go. The tp ranks' steps, whose collectives
+  cross the host, and CPU engines run the same step eagerly.
 - **Bucketed prefill**: a prompt is padded to the next power-of-two
   bucket (capped at ``max_len``) and prefilled B=1 from position 0 —
   through the flash kernel with ``cfg.attn == "flash"`` — into a fresh
@@ -51,6 +57,7 @@ import dataclasses
 import torch
 
 from tpushare_torch import metrics
+from tpushare_torch.kernels import kv_decode
 from tpushare_torch.workloads import parallel
 from tpushare_torch.workloads.model import (
     ModelConfig, forward_cached, init_kv_cache, kv_decode_spans,
@@ -160,6 +167,11 @@ class DecodeEngine:
         self._dev = dev
         local, mesh = parallel.localize(params)
         self._kv_heads = local_heads(local, cfg, mesh)[1]
+        # the decode step as a CUDA graph (captured by the first quantum),
+        # its emitted row and the kv_decode launches one replay makes
+        self._graphable = dev.type == "cuda" and mesh is None
+        self._graph = self._graph_out = None
+        self._graph_launches = 0
         self._per_request = bool(per_request_sampling)
         self._rolling = bool(rolling)
         self._params = params
@@ -226,11 +238,12 @@ class DecodeEngine:
     def _nucleus_mask(scaled: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         """Keep the smallest descending-probability prefix whose mass
         reaches p (the crossing token included); ties at the floor all
-        survive. p is per row."""
+        survive. p is per row. A row of NaN logits (an idle ring slot
+        that holds no key yet) keeps its floor index in range."""
         svals = torch.sort(scaled, dim=-1, descending=True).values
         probs = torch.softmax(svals, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
-        kth = ((cum - probs) < p[:, None]).sum(dim=-1)
+        kth = ((cum - probs) < p[:, None]).sum(dim=-1).clamp_min(1)
         floor = svals.gather(1, (kth - 1)[:, None])
         return scaled.masked_fill(scaled < floor, float("-inf"))
 
@@ -413,46 +426,90 @@ class DecodeEngine:
 
     def load_slot_table(self, longs: torch.Tensor,
                         floats: torch.Tensor) -> None:
-        """Take another engine's :meth:`slot_table` as this one's."""
-        (self._last, self._pos, active, self._remaining, self._rkey,
-         self._slot_eos) = longs.unbind(0)
-        self._active = active.bool()
-        self._slot_temp, self._slot_topp = floats.unbind(0)
+        """Take another engine's :meth:`slot_table` as this one's (copied
+        into the engine's own slot tensors)."""
+        for buf, row in zip((self._last, self._pos, self._active,
+                             self._remaining, self._rkey, self._slot_eos),
+                            longs.unbind(0)):
+            buf.copy_(row)
+        self._slot_temp.copy_(floats[0])
+        self._slot_topp.copy_(floats[1])
+
+    def _step(self) -> torch.Tensor:
+        """One lock-step decode step over every slot; returns the emitted
+        tokens ``[S]`` (-1 = idle lane). It reads and updates the slot
+        tensors in place, so a CUDA graph of it replays over the same
+        addresses, and it never waits for the host."""
+        active = self._active
+        logits, _ = forward_cached(
+            self._params, self._last[:, None], self._cache, self._pos,
+            self._cfg, prefill_from_zero=False, write_rows=active)
+        nxt = self._pick(logits[:, -1], self._rkey, self._pos,
+                         self._slot_temp, self._slot_topp)
+        emitted = torch.where(active, nxt, -1)
+        step = active.long()
+        self._pos.add_(step)
+        self._remaining.sub_(step)
+        done = active & ((nxt == self._slot_eos) | (self._remaining <= 0))
+        self._last.copy_(torch.where(active, nxt, self._last))
+        self._active.logical_and_(~done)
+        return emitted
+
+    def _capture(self) -> torch.Tensor:
+        """Run one step eagerly on a side stream (it warms cuBLAS and the
+        allocator there), then capture the next step on that stream as
+        the engine's CUDA graph, which runs nothing. Returns the eager
+        step's emitted tokens."""
+        dev = self._dev
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                emitted = self._step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            launches = kv_decode.LAUNCHES
+            # the engine's client threads may call CUDA meanwhile
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = self._step()
+            self._graph_launches = kv_decode.LAUNCHES - launches
+            kv_decode.LAUNCHES = launches
+        self._graph, self._graph_out = graph, out
+        return emitted
 
     @torch.inference_mode()
     def decode_quantum(self, k: int) -> torch.Tensor:
         """k lock-step decode steps on the device; returns [k + 1, S]:
         the emitted tokens (-1 = idle lane) and, last, the active flags.
-        Every step computes all S rows (span ``engine.step``: ``rows``,
-        and ``keys_read``, the cache positions its attention reads: the
-        sum of the active rows' spans, on the device, where the step runs
-        the ``kv_decode`` kernel; every row's whole buffer where it runs
-        the einsum)."""
-        emitted = []
-        rows = self._last.shape[0]
-        for _ in range(k):
-            with metrics.span("engine.step", rows=rows) as step:
-                active = self._active
+        Every step computes all S rows (span ``engine.step``: ``rows``;
+        ``graph``, 1 where the step replayed the engine's CUDA graph and
+        0 where it ran eagerly; and ``keys_read``, the cache positions
+        its attention reads: the sum of the active rows' spans, on the
+        device, where the step runs the ``kv_decode`` kernel; every row's
+        whole buffer where it runs the einsum)."""
+        rows = self._S
+        block = torch.empty((k + 1, rows), dtype=torch.long,
+                            device=self._dev)
+        for i in range(k):
+            replay = self._graph is not None
+            with metrics.span("engine.step", rows=rows,
+                              graph=int(replay)) as step:
                 if step:
                     spans = kv_decode_spans(self._cfg, self._cache,
-                                            self._pos, 1, active)
+                                            self._pos, 1, self._active)
                     step.add(keys_read=rows * self._cache["k"].shape[2]
                              if spans is None else (spans[1] - spans[0]).sum())
-                logits, _ = forward_cached(
-                    self._params, self._last[:, None], self._cache,
-                    self._pos, self._cfg, prefill_from_zero=False,
-                    write_rows=active)
-                nxt = self._pick(logits[:, -1], self._rkey, self._pos,
-                                 self._slot_temp, self._slot_topp)
-                emitted.append(torch.where(active, nxt, -1))
-                step = active.long()
-                self._pos = self._pos + step
-                self._remaining = self._remaining - step
-                done = active & ((nxt == self._slot_eos)
-                                 | (self._remaining <= 0))
-                self._last = torch.where(active, nxt, self._last)
-                self._active = active & ~done
-        return torch.cat([torch.stack(emitted), self._active[None].long()])
+                if replay:
+                    self._graph.replay()
+                    kv_decode.LAUNCHES += self._graph_launches
+                    block[i].copy_(self._graph_out)
+                elif self._graphable:
+                    block[i].copy_(self._capture())
+                else:
+                    block[i].copy_(self._step())
+        block[k].copy_(self._active)
+        return block
 
     def run_quantum(self, k: int | None = None) -> dict[int, list[int]]:
         """Advance all resident requests up to ``k`` (default: the
