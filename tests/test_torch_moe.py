@@ -13,6 +13,7 @@ version.
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -437,7 +438,11 @@ def test_init_params_moe_draw_order_and_layout():
     L, d, v, E, f = 2, 64, 256, 4, 128
 
     def w(*shape, fan_in):
-        return torch.randn(shape, generator=gen) * fan_in ** -0.5
+        # each [R, C] matrix of the stack in turn, row-major
+        *lead, R, C = shape
+        mats = [torch.randn((R, C), generator=gen) * fan_in ** -0.5
+                for _ in range(math.prod(lead))]
+        return torch.stack(mats).reshape(shape)
 
     want = {"embed": w(v, d, fan_in=d).bfloat16()}
     for name, cols in (("wq", 64), ("wk", 32), ("wv", 32)):

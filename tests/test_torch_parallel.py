@@ -203,50 +203,60 @@ DRAWS = [((3, 8, 12), P(None, None, "tp"), True),     # column-parallel
 @pytest.mark.parametrize("rows", [1, 5, 1000])
 def test_draw_keeps_the_shard_of_one_draw(shape, spec, quant, rows,
                                           monkeypatch):
-    # the draw in pieces of ``rows`` rows (what a large CUDA draw does)
-    # keeps this rank's shard of the one draw, and the whole weight's
-    # per-output-channel maximum
-    real = parallel.normal_rows
-
-    def pieces(shape, generator, chunk=parallel.DRAW_CHUNK):
-        (_, whole), = real(shape, generator)
-        for r0 in range(0, whole.shape[0], rows):
-            yield r0, whole[r0:r0 + rows].clone()
-
-    monkeypatch.setattr(parallel, "normal_rows", pieces)
-    mesh = _Mesh(("dp", "tp", "ep"), (1, 2, 2), (0, 1, 1))
-    want = (torch.randn(shape, generator=torch.Generator().manual_seed(3))
-            * 0.5).to(torch.bfloat16)
-    own, amax = parallel.draw(shape, torch.Generator().manual_seed(3), 0.5,
-                              torch.bfloat16, spec, mesh if spec else None,
-                              amax=quant)
-    if spec is not None:
-        want_own = parallel.local_shard(want, spec, mesh)
-    else:
-        want_own = want
-    assert torch.equal(own, want_own)
-    if quant:
-        full = want.float().abs().amax(dim=-2, keepdim=True)
+    # with pieces of one row, of a few rows and of whole matrices, every
+    # rank's shard is its slice of the one-card draw of the same seed, and
+    # its amax the whole weight's per-output-channel maximum
+    monkeypatch.setattr(parallel, "DRAW_CHUNK", rows * shape[-1])
+    want, _ = parallel.draw(shape, torch.Generator().manual_seed(3), 0.5,
+                            torch.bfloat16)
+    full = want.float().abs().amax(dim=-2, keepdim=True)
+    _, whole = parallel.draw(shape, torch.Generator().manual_seed(3), 0.5,
+                             torch.bfloat16, amax=True)
+    assert torch.equal(whole, full)
+    for tp, ep in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        mesh = _Mesh(("dp", "tp", "ep"), (1, 2, 2), (0, tp, ep))
+        own, amax = parallel.draw(shape, torch.Generator().manual_seed(3),
+                                  0.5, torch.bfloat16, spec,
+                                  mesh if spec else None, amax=quant)
         if spec is not None:
-            full = parallel.local_shard(full, P(*spec[:-2], None, spec[-1]),
-                                        mesh)
-        assert torch.equal(amax, full)
+            assert torch.equal(own, parallel.local_shard(want, spec, mesh))
+        else:
+            assert torch.equal(own, want)
+        if quant:
+            want_amax = full
+            if spec is not None:
+                want_amax = parallel.local_shard(
+                    full, P(*spec[:-2], None, spec[-1]), mesh)
+            assert torch.equal(amax, want_amax)
+        else:
+            assert amax is None
 
 
-def test_piecewise_draws_follow_torchs_launches():
-    # a draw over more than 2**31 bytes of fp32 is several launches, in
-    # halves, in address order; llama-8b's w1 stack is four, wq one
-    assert parallel._launches(32 * 4096 * 14336) == [
-        (i * 469762048, (i + 1) * 469762048) for i in range(4)]
-    assert parallel._launches(1 << 29) == [(0, 1 << 29)]
-    n = (1 << 29) + (1 << 26)
-    assert parallel._launches(n) == [(0, n // 2), (n // 2, n)]
-    assert parallel._launches(5) == [(0, 5)]
-    # on the CPU the pieces are the one draw
-    (r0, rows), = parallel.normal_rows((3, 4), torch.Generator().manual_seed(
-        1), chunk=2)
-    assert r0 == 0 and torch.equal(rows, torch.randn(
-        3, 4, generator=torch.Generator().manual_seed(1)))
+def test_draw_is_fixed_pieces(monkeypatch):
+    # a [L, R, C] draw is L consecutive [R, C] draws from one generator
+    gen = torch.Generator().manual_seed(5)
+    got, _ = parallel.draw((3, 8, 6), gen, 0.25, torch.bfloat16)
+    ref = torch.Generator().manual_seed(5)
+    want = torch.stack([(torch.randn((8, 6), generator=ref) * 0.25)
+                        .to(torch.bfloat16) for _ in range(3)])
+    assert torch.equal(got, want)
+    assert torch.equal(torch.randn(4, generator=gen),
+                       torch.randn(4, generator=ref))
+    # a matrix over DRAW_CHUNK is its blocks of DRAW_CHUNK // C whole rows,
+    # drawn in order, the last one short
+    monkeypatch.setattr(parallel, "DRAW_CHUNK", 3 * 6 + 2)
+    got, _ = parallel.draw((8, 6), torch.Generator().manual_seed(6), 1.0,
+                           torch.float32)
+    ref = torch.Generator().manual_seed(6)
+    want = torch.cat([torch.randn((n, 6), generator=ref) for n in (3, 3, 2)])
+    assert torch.equal(got, want)
+    # wider than a piece: one row a block
+    monkeypatch.setattr(parallel, "DRAW_CHUNK", 4)
+    got, _ = parallel.draw((2, 6), torch.Generator().manual_seed(7), 1.0,
+                           torch.float32)
+    ref = torch.Generator().manual_seed(7)
+    want = torch.cat([torch.randn((1, 6), generator=ref) for _ in range(2)])
+    assert torch.equal(got, want)
 
 
 def test_quantized_shard_equals_the_shard_of_the_quantized_weight():
@@ -258,8 +268,8 @@ def test_quantized_shard_equals_the_shard_of_the_quantized_weight():
     own, amax = parallel.draw((2, 8, 6), gen, 0.3, torch.bfloat16, spec,
                               mesh, amax=True)
     got = tm._q_with(own, amax)
-    whole = (torch.randn((2, 8, 6), generator=torch.Generator().manual_seed(
-        4)) * 0.3).to(torch.bfloat16)
+    whole, _ = parallel.draw((2, 8, 6), torch.Generator().manual_seed(4),
+                             0.3, torch.bfloat16)
     want = tm.quantize_int8({"embed": whole, "final_norm": whole,
                              "lm_head": whole[0], "layers": {"wo": whole}})
     want = want["layers"]["wo"]

@@ -183,7 +183,7 @@ def test_served_tokens_equal_the_jax_engine():
     prompts = [[5, 9], [100, 2, 77, 31, 8, 4, 19], [240] * 11]
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(tm.PRESETS, "llama-tiny", fp32)
-        mp.setattr(tm, "init_params", lambda cfg, gen: pt)
+        mp.setattr(tm, "init_params", lambda cfg, gen, int8: pt)
         s = _Server(["--preset", "llama-tiny", "--device", "cpu", "--port",
                      "0", "--engine", "--engine-slots", "4",
                      "--engine-max-len", "32", "--quant", "none",
@@ -225,7 +225,7 @@ def test_moe_replica_serves_the_reference_greedy_decode_kv():
     prompts = [[5, 9, 200, 31, 8, 4], [100, 2, 77, 31, 8, 19]]
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(tm.PRESETS, "llama-moe-tiny", fp32)
-        mp.setattr(tm, "init_params", lambda cfg, gen: pt)
+        mp.setattr(tm, "init_params", lambda cfg, gen, int8: pt)
         s = _Server(["--preset", "llama-moe-tiny", "--device", "cpu",
                      "--port", "0", "--quant", "none", "--attn", "flash"])
     try:

@@ -265,9 +265,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     sigmoid router's zero buffers ``router_bias`` and ``router_load``
     (float32 ``[.., E]``) follow them.
 
-    ``int8`` returns ``quantize_int8`` of those weights. With a ``mesh``
-    every rank draws the same values, one weight stack at a time and a
-    piece at a time, keeps its shard under :func:`param_specs` (with
+    Each weight is drawn in the fixed pieces of
+    :func:`~tpushare_torch.workloads.parallel.draw`. ``int8`` returns
+    ``quantize_int8`` of those weights, each quantized as it is drawn, so
+    the bf16 tree never exists whole. With a ``mesh`` every rank draws
+    the same pieces, keeps its shard under :func:`param_specs` (with
     ``int8``, :func:`quant_specs`: each weight quantized whole, then
     sharded) and returns DTensors. ``generator`` None allocates the same
     tree on ``device`` without drawing: a target to load into."""

@@ -46,6 +46,7 @@ process per rank instead:
 
 from __future__ import annotations
 
+import itertools
 import math
 import multiprocessing
 import os
@@ -490,132 +491,30 @@ def dp_mean_grads(params: list, mesh) -> None:
 
 # -- drawing weights shard by shard -------------------------------------------
 
-DRAW_CHUNK = 1 << 26   # elements of one piece of a large CUDA draw
-# torch launches a draw whose fp32 output spans more bytes than an int32
-# indexes as several launches (TensorIterator's 32-bit split)
-_INT32_MAX = 2 ** 31 - 1
-
-
-def _grid_stride(n: int, dev) -> int:
-    """Threads of torch's CUDA ``normal_`` launch for ``n`` elements:
-    blocks of 256, at most as many as the card's SMs hold at once."""
-    props = torch.cuda.get_device_properties(dev)
-    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // 256
-    return 256 * min(props.multi_processor_count * per_sm, -(-n // 256))
-
-
-def _philox_step(n: int, dev) -> int:
-    """The Philox offset one launch over ``n`` elements reserves: four per
-    round of the grid-stride loop (each thread draws four a round)."""
-    return ((n - 1) // (4 * _grid_stride(n, dev)) + 1) * 4
-
-
-def _launches(n: int) -> list[tuple[int, int]]:
-    """[lo, hi) of each launch torch makes for a draw of ``n`` fp32
-    elements: halves (the first ``n // 2``), again and again, until a
-    launch's last byte is within int32 reach, in address order."""
-    if 1 + (n - 1) * 4 <= _INT32_MAX:
-        return [(0, n)]
-    half = n // 2
-    return _launches(half) + [(half + lo, half + hi)
-                              for lo, hi in _launches(n - half)]
-
-
-def normal_rows(shape: tuple, generator, chunk: int = DRAW_CHUNK):
-    """Yield ``(row0, rows)``: ``torch.randn(shape, generator=generator)``
-    (fp32, on the generator's device) as ``[n, shape[-1]]`` blocks of its
-    rows, bitwise the one draw's values, leaving the generator where the
-    one draw leaves it. On the CPU, or for up to ``chunk`` elements, that
-    is the one draw. A larger CUDA draw is made ``chunk`` elements at a
-    time, following torch's kernel (``ATen/native/cuda/
-    DistributionTemplates.h``): a draw over more than 2**31 bytes is
-    several launches (:func:`_launches`), after the whole draw has
-    reserved its own offset; within a launch, element i takes the Philox
-    offset ``4 * (i // (4 * threads))`` past the launch's, so a piece
-    that starts at a multiple of ``4 * threads`` and launches as many
-    threads is that part of the launch with the offset moved on. No more
-    than a piece of fp32 exists at a time, where the one draw holds the
-    whole stack (7.0 GiB for llama-8b's w1). :func:`check_normal_rows`
-    holds this against one draw on the card."""
-    n, C = math.prod(shape), shape[-1]
-    dev = generator.device
-    if dev.type != "cuda" or n <= chunk:
-        yield 0, torch.randn(shape, generator=generator,
-                             device=dev).reshape(-1, C)
-        return
-    launches = _launches(n)
-    if any(lo % C for lo, _ in launches):
-        raise ValueError(f"a draw of {tuple(shape)}: torch's launches "
-                         "split its rows")
-    offset = generator.get_offset()
-    if len(launches) > 1:
-        offset += _philox_step(n, dev)
-    for lo, hi in launches:
-        m = hi - lo
-        stride = _grid_stride(m, dev)
-        align = 4 * stride
-        unit = math.lcm(align, C)
-        step = max(unit, chunk // unit * unit)
-        for start in range(0, m, step):
-            size = min(step, m - start)
-            generator.set_offset(offset + 4 * (start // align))
-            piece = torch.randn(max(size, stride), generator=generator,
-                                device=dev)
-            yield (lo + start) // C, piece[:size].view(-1, C)
-        offset += _philox_step(m, dev)
-    generator.set_offset(offset)
-
-
-_CHECKED: set = set()
-
-
-def check_normal_rows(dev) -> None:
-    """Hold :func:`normal_rows`' pieces bitwise against one draw on
-    ``dev`` (once per device and process), at a size torch splits into
-    two launches; raises if torch's kernel no longer numbers its Philox
-    offsets as :func:`normal_rows` assumes. Holds about 2.4 GB while it
-    runs."""
-    dev = torch.device(dev)
-    if dev.type != "cuda" or dev in _CHECKED:
-        return
-    shape = ((1 << 29) // 512 + (1 << 17), 512)
-    whole = torch.Generator(device=dev).manual_seed(1234)
-    want = torch.randn(shape, generator=whole, device=dev)
-    parts = torch.Generator(device=dev).manual_seed(1234)
-    same = all(torch.equal(rows, want[r0:r0 + rows.shape[0]])
-               for r0, rows in normal_rows(shape, parts))
-    del want
-    torch.cuda.empty_cache()
-    if not same or parts.get_offset() != whole.get_offset():
-        raise RuntimeError("piecewise CUDA draws differ from one draw: "
-                           "torch's normal_ kernel changed its launch")
-    _CHECKED.add(dev)
-
-
-def local_shape(shape: tuple, spec: P | None, mesh) -> tuple:
-    if spec is None:
-        return tuple(shape)
-    return tuple(hi - lo for lo, hi in
-                 (shard_range(s, mesh, a) for s, a in zip(shape, spec)))
+DRAW_CHUNK = 1 << 26   # fp32 elements of one piece of a draw (256 MiB)
 
 
 def draw(shape: tuple, generator, mult: float, dtype, spec: P | None = None,
-         mesh=None, amax: bool = False, device=None, chunk: int = DRAW_CHUNK):
-    """This rank's shard (under ``spec``; all of it without a mesh) of
-    ``(torch.randn(shape, generator=generator) * mult).to(dtype)``, drawn
-    piece by piece (:func:`normal_rows`) on a mesh, and with ``amax`` the
-    fp32 maximum of |value| over dim -2 (keepdim) of every column and leading
-    index this rank holds, taken over all rows, this rank's or not: what a
-    per-output-channel int8 scale of the whole weight needs. Returns
-    ``(shard, amax or None)``. ``generator`` None allocates the shard on
-    ``device`` without drawing (a target to load into)."""
-    own_shape = local_shape(shape, spec, mesh)
+         mesh=None, amax: bool = False, device=None):
+    """This rank's shard (under ``spec``; all of it without a mesh) of a
+    weight of ``shape`` ``[*lead, R, C]``, drawn in fixed pieces, the
+    same on one card and on every rank: one leading index at a time in
+    row-major order, and within it the ``[R, C]`` matrix in blocks of
+    ``max(1, DRAW_CHUNK // C)`` whole rows, each block one
+    ``torch.randn((rows, C), generator=generator)``, times ``mult``, cast
+    to ``dtype``. Every rank draws every piece and keeps the part inside
+    its shard, so N ranks hold exactly the shards of the one-card weight.
+    With ``amax``, also the fp32 maximum of |value| over dim -2 (keepdim)
+    of every column and leading index this rank holds, over all rows,
+    this rank's or not: what a per-output-channel int8 scale of the whole
+    weight needs. Returns ``(shard, amax or None)``. ``generator`` None
+    allocates the shard on ``device`` without drawing (a target to load
+    into)."""
+    ranges = [shard_range(s, mesh, a)
+              for s, a in zip(shape, spec or (None,) * len(shape))]
+    own_shape = [hi - lo for lo, hi in ranges]
     dev = generator.device if generator is not None else torch.device(
         device or "cpu")
-    if generator is not None and mesh is None and not amax:
-        # all of it: the one draw, which the pieces must equal
-        x = torch.randn(shape, generator=generator, device=dev)
-        return x.mul_(mult).to(dtype), None
     own = torch.empty(own_shape, dtype=dtype, device=dev)
     red = None
     if amax:
@@ -623,41 +522,24 @@ def draw(shape: tuple, generator, mult: float, dtype, spec: P | None = None,
                           dtype=torch.float32, device=dev)
     if generator is None:
         return own, red
-    if generator.device.type == "cuda" and math.prod(shape) > chunk:
-        check_normal_rows(generator.device)
-    lead = tuple(shape[:-1])
-    ranges = [shard_range(s, mesh, a) if spec is not None and a else (0, s)
-              for s, a in zip(shape, spec or (None,) * len(shape))]
-    c0, c1 = ranges[-1]
-    own_rows = own.view(-1, own_shape[-1])
-    for row0, rows in normal_rows(shape, generator, chunk):
-        vals = rows.mul_(mult).to(dtype)
-        # each row's index along every leading dim; a row is this rank's
-        # when every index is in its range, and feeds its amax when every
-        # index but the row dim's (the one the scale reduces) is
-        idx = torch.arange(row0, row0 + rows.shape[0], device=dev)
-        subs = []
-        for size in reversed(lead):
-            subs.append(idx % size)
-            idx = idx // size
-        subs.reverse()
-        mine = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
-        held = mine.clone()
-        local = torch.zeros_like(idx)    # row of this rank's shard
-        group = torch.zeros_like(idx)    # row of this rank's amax
-        for d, (sub, (lo, hi)) in enumerate(zip(subs, ranges[:-1])):
-            inside = (sub >= lo) & (sub < hi)
-            mine &= inside
-            local = local * (hi - lo) + (sub - lo)
-            if d < len(lead) - 1:
-                held &= inside
-                group = group * (hi - lo) + (sub - lo)
-        cols = vals[:, c0:c1]
-        own_rows[local[mine]] = cols[mine]
-        if amax:
-            sel, gi = cols[held].float().abs(), group[held]
-            red.view(-1, red.shape[-1]).scatter_reduce_(
-                0, gi[:, None].expand(-1, sel.shape[1]), sel, "amax")
+    *lead, R, C = shape
+    (r0, r1), (c0, c1) = ranges[-2:]
+    step = max(1, DRAW_CHUNK // C)
+    for idx in itertools.product(*map(range, lead)):
+        held = all(lo <= i < hi for i, (lo, hi) in zip(idx, ranges))
+        at = tuple(i - lo for i, (lo, _) in zip(idx, ranges))
+        for b0 in range(0, R, step):
+            b1 = min(b0 + step, R)
+            block = torch.randn((b1 - b0, C), generator=generator,
+                                device=dev).mul_(mult).to(dtype)
+            if not held:
+                continue
+            lo, hi = max(b0, r0), min(b1, r1)
+            if lo < hi:
+                own[at][lo - r0:hi - r0] = block[lo - b0:hi - b0, c0:c1]
+            if amax:
+                top = block[:, c0:c1].float().abs().amax(0, keepdim=True)
+                red[at] = torch.maximum(red[at], top)
     return own, red
 
 

@@ -821,8 +821,7 @@ def build_server(argv: list[str] | None = None):
 
     from tpushare_torch.workloads import resolve_device
     from tpushare_torch.workloads.model import (
-        PRESETS, greedy_decode, greedy_decode_kv, init_params,
-        quantize_int8)
+        PRESETS, greedy_decode, greedy_decode_kv, init_params)
 
     if args.attn_window < 0:
         ap.error(f"--attn-window {args.attn_window} must be >= 0")
@@ -859,9 +858,7 @@ def build_server(argv: list[str] | None = None):
         cfg = _serve_cfg(args)
         gen = torch.Generator(device=device).manual_seed(args.seed)
         with torch.inference_mode():
-            params = init_params(cfg, gen)
-            if args.quant == "int8":
-                params = quantize_int8(params)
+            params = init_params(cfg, gen, int8=args.quant == "int8")
 
     if args.no_kv_cache and args.kv_cache_dtype == "int8":
         print("note: --kv-cache-dtype int8 has no effect with "
